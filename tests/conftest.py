@@ -32,3 +32,11 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU (the PyTorch port's kernels); skipped when "
+        "torch.cuda.is_available() is false",
+    )
