@@ -1,8 +1,9 @@
 // Fused sparse-GP predictive for NVIDIA Hopper (sm_90a).
 //
-// Replaces cbfssm_tpu/ops/pallas/gp_predict.py::_kernel (the Pallas TPU
-// kernel launched by _pallas_forward(with_residuals=False)). For N query
-// rows x [N, DI] against M inducing points it computes
+// Replaces cbfssm_tpu/ops/pallas/gp_predict.py::_kernel and
+// ::_kernel_with_residuals (the two Pallas TPU kernels launched by
+// _pallas_forward). For N query rows x [N, DI] against M inducing points
+// it computes
 //
 //   xs   = x * inv_ls
 //   d2   = max(|xs|^2 - 2 xs.zs^T + |zs|^2, 0)
@@ -11,7 +12,10 @@
 //   mean = kmn @ alpha                              [N, D]
 //   var  = max(kvar - sum_m kmn*w, 0) + (w*w) @ var_q   [N, D]
 //
-// without writing kmn or w to device memory.
+// The gp_predict_* entry points write only mean and var. The
+// gp_predict_residuals_* entry points (the forward of the training path,
+// whose analytic backward needs kmn and w) also write kmn [N, M] and
+// w [N, M]; one template, switched by kResiduals, serves both.
 //
 // Design. One block per tile of TN rows; rows are independent, so
 // nothing is reduced across blocks and the ragged last tile is bounded by
@@ -32,6 +36,13 @@
 // not by device memory: x, mean and var are a few hundred KB. Staging
 // kinv costs M*M elements per block (40 KB in f32 at M = 100), which is
 // why it needs dynamic shared memory above the 48 KB static limit.
+//
+// With residuals the block also copies its tile's kmn and w rows out of
+// shared memory after phase 2: 2*N*M elements of writes (10.2 MB in f32
+// at N = 12,800, M = 100; ~3 us at 3.35 TB/s), issued as contiguous
+// stores in which neighbouring threads take neighbouring columns. Its
+// least time is still set by the operations (~4.4 us at the f32
+// CUDA-core peak against ~3.2 us of device-memory traffic).
 //
 // Later work, not done here: register tiling or tensor cores (3xTF32 /
 // wgmma) for the phase-2 product, TMA staging of kinv, and CUDA graphs
@@ -55,13 +66,14 @@ __device__ __forceinline__ T warp_sum(T v) {
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
 __device__ __forceinline__ double exp_t(double v) { return exp(v); }
 
-template <typename T>
+template <typename T, bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
                   const T* __restrict__ inv_ls, const T* __restrict__ kvar_ptr,
                   const T* __restrict__ kinv, const T* __restrict__ alpha,
                   const T* __restrict__ var_q, T* __restrict__ mean_out,
-                  T* __restrict__ var_out, int n, int m, int di, int d, int tn) {
+                  T* __restrict__ var_out, T* __restrict__ kmn_out,
+                  T* __restrict__ w_out, int n, int m, int di, int d, int tn) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s_zs = reinterpret_cast<T*>(smem_raw);  // [m, di]
     T* s_zn = s_zs + m * di;                   // [m]
@@ -125,6 +137,16 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
     }
     __syncthreads();
 
+    // ---- residuals: the tile's rows of kmn and w are one contiguous
+    // span of rows * m elements in each [N, M] output ----
+    if constexpr (kResiduals) {
+        const size_t base = (size_t)row0 * m;
+        for (int i = tid; i < rows * m; i += kThreads) {
+            kmn_out[base + i] = s_kmn[i];
+            w_out[base + i] = s_w[i];
+        }
+    }
+
     // ---- phase 3: one warp per row: qf, mean, variance ----
     const int warp = tid >> 5, lane = tid & 31;
     for (int r = warp; r < rows; r += kWarps) {
@@ -167,10 +189,10 @@ size_t smem_bytes(int m, int di, int d, int tn) {
     return elems * sizeof(T);
 }
 
-template <typename T>
+template <typename T, bool kResiduals>
 int launch(const T* x, const T* zs, const T* inv_ls, const T* kvar,
            const T* kinv, const T* alpha, const T* var_q, T* mean, T* var,
-           int n, int m, int di, int d, void* stream) {
+           T* kmn, T* w, int n, int m, int di, int d, void* stream) {
     int dev = 0, limit = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
@@ -182,11 +204,12 @@ int launch(const T* x, const T* zs, const T* inv_ls, const T* kvar,
     while (tn > 8 && smem_bytes<T>(m, di, d, tn) > (size_t)limit) tn /= 2;
     const size_t bytes = smem_bytes<T>(m, di, d, tn);
     err = cudaFuncSetAttribute(
-        gp_predict_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        gp_predict_kernel<T, kResiduals>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + tn - 1) / tn;
-    gp_predict_kernel<T><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-        x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, n, m, di, d, tn);
+    gp_predict_kernel<T, kResiduals><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+        x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w, n, m, di, d, tn);
     return (int)cudaGetLastError();
 }
 
@@ -201,16 +224,33 @@ int gp_predict_f32(const float* x, const float* zs, const float* inv_ls,
                    const float* kvar, const float* kinv, const float* alpha,
                    const float* var_q, float* mean, float* var, int n, int m,
                    int di, int d, void* stream) {
-    return launch<float>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, n, m, di, d,
-                         stream);
+    return launch<float, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
+                                nullptr, n, m, di, d, stream);
 }
 
 int gp_predict_f64(const double* x, const double* zs, const double* inv_ls,
                    const double* kvar, const double* kinv, const double* alpha,
                    const double* var_q, double* mean, double* var, int n, int m,
                    int di, int d, void* stream) {
-    return launch<double>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, n, m, di, d,
-                          stream);
+    return launch<double, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
+                                 nullptr, n, m, di, d, stream);
+}
+
+// As gp_predict_*, and also writes kmn [N, M] and w [N, M] (row-major).
+int gp_predict_residuals_f32(const float* x, const float* zs, const float* inv_ls,
+                             const float* kvar, const float* kinv, const float* alpha,
+                             const float* var_q, float* mean, float* var, float* kmn,
+                             float* w, int n, int m, int di, int d, void* stream) {
+    return launch<float, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w, n,
+                               m, di, d, stream);
+}
+
+int gp_predict_residuals_f64(const double* x, const double* zs, const double* inv_ls,
+                             const double* kvar, const double* kinv, const double* alpha,
+                             const double* var_q, double* mean, double* var, double* kmn,
+                             double* w, int n, int m, int di, int d, void* stream) {
+    return launch<double, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w,
+                                n, m, di, d, stream);
 }
 
 const char* gp_predict_error_string(int code) {

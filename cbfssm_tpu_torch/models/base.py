@@ -45,13 +45,15 @@ def moments_over_samples(x):
 class BaseSSM:
     """Common config handling + loss/prediction helpers.
 
-    ``device`` places parameters, noise draws and computation; the
-    config keys and their checks are the JAX package's. Options that
-    belong to training or to the TPU (fused multi-epoch dispatch, the
-    hand and parallel adjoints) are accepted at their defaults only.
+    ``device`` places parameters, noise draws and computation: the card
+    unless the caller asks for ``"cpu"``. The config keys and their
+    checks are the JAX package's. Options that belong to the TPU (fused
+    multi-epoch dispatch, the hand and parallel adjoints) are accepted
+    at their defaults only; with ``adjoint='auto'`` gradients come from
+    autograd, as 'auto' resolves to autodiff in the JAX package.
     """
 
-    def __init__(self, config, device="cpu"):
+    def __init__(self, config, device="cuda"):
         self.config = as_config(config)
         self.device = torch.device(device)
         if self.config.dtype not in _DTYPES:
@@ -78,6 +80,11 @@ class BaseSSM:
             raise ValueError(
                 "epochs_per_dispatch (fused multi-epoch dispatch) is not "
                 "ported; only the default 'auto' is accepted"
+            )
+        if not isinstance(self.config.skip_nonfinite_updates, (bool, np.bool_)):
+            raise ValueError(
+                "skip_nonfinite_updates must be True or False, got "
+                f"{self.config.skip_nonfinite_updates!r}"
             )
         if self.config.backward_mode not in ("auto", "blocked", "sequential"):
             raise ValueError(

@@ -1,12 +1,15 @@
 """CBF-SSM: conditional backward/forward state-space model (port of
-``cbfssm_tpu/models/cbfssm.py``: loss value and predict).
+``cbfssm_tpu/models/cbfssm.py``: the differentiable loss and predict).
 
 The recognition (backward) pass runs both segment phases of the
 reference together on a leading run axis, in the reference-shaped
 sequential schedule or the block-parallel one (depth 2*recog_len). The
 forward pass is the conditioned particle rollout. Each step makes one
 GP prediction (``BaseSSM._gp_predict``), which is the fused CUDA kernel
-under ``gp_impl='pallas'``.
+under ``gp_impl='pallas'``. Gradients of :meth:`CBFSSM.loss` come from
+autograd through the Python loops; under ``gp_impl='pallas'`` each step's
+predict contributes the analytic backward of
+:class:`cbfssm_tpu_torch.ops.fused_predict.FusedPredict`.
 
 Random draws: the JAX package draws its noise inside the rollout from a
 key. Here :meth:`CBFSSM.draw_noise` draws the same arrays, in the same
@@ -37,10 +40,27 @@ class CBFSSMParams:
 
     def to(self, *args, **kwargs) -> "CBFSSMParams":
         """Every leaf through ``Tensor.to(*args, **kwargs)``."""
-        return CBFSSMParams(
-            self.gp_f.to(*args, **kwargs), self.gp_b.to(*args, **kwargs),
-            self.var_x_unc.to(*args, **kwargs), self.var_y_unc.to(*args, **kwargs),
-        )
+        return CBFSSMParams.from_tensors([t.to(*args, **kwargs) for t in self.tensors()])
+
+    def tensors(self) -> list:
+        """The leaves in a fixed order (gp_f's, gp_b's in
+        ``SparseGPParams`` field order, then var_x_unc, var_y_unc): the
+        optimizer's parameter list and the checkpoint layout."""
+        return [*self.gp_f.tensors(), *self.gp_b.tensors(), self.var_x_unc, self.var_y_unc]
+
+    @staticmethod
+    def from_tensors(tensors) -> "CBFSSMParams":
+        """Inverse of :meth:`tensors`."""
+        t = list(tensors)
+        n = len(gp.SparseGPParams.__dataclass_fields__)
+        if len(t) != 2 * n + 2:
+            raise ValueError(f"CBFSSMParams takes {2 * n + 2} tensors, got {len(t)}")
+        return CBFSSMParams(gp.SparseGPParams(*t[:n]), gp.SparseGPParams(*t[n:2 * n]),
+                            t[2 * n], t[2 * n + 1])
+
+    def detach(self) -> "CBFSSMParams":
+        """The same values, cut from autograd."""
+        return CBFSSMParams.from_tensors([t.detach() for t in self.tensors()])
 
 
 @dataclass
@@ -56,7 +76,7 @@ class RolloutNoise:
 
 
 class CBFSSM(BaseSSM):
-    def __init__(self, config, device="cpu"):
+    def __init__(self, config, device="cuda"):
         super().__init__(config, device)
         self.dim_x = int(self.config.dim_x)
         self.dim_h = self.dim_x - self.dim_y  # unobserved latent dims
@@ -276,7 +296,7 @@ class CBFSSM(BaseSSM):
              weights=None, noise: RolloutNoise | None = None):
         """Negative ELBO (cbfssm.py:239-262): per-sequence terms are
         weighted (pad masking) and summed; inducing-point KLs are global.
-        Returns (loss, aux). Value only: training is not ported yet."""
+        Returns (loss, aux); differentiable in ``params``."""
         x_final, kl_x, entropy, (var_x, var_y, cache_f, cache_b, y_tm) = self._rollout(
             params, u, y, generator, condition, noise
         )

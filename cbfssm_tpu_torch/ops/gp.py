@@ -43,7 +43,11 @@ class SparseGPParams:
 
     def to(self, *args, **kwargs) -> "SparseGPParams":
         """Every leaf through ``Tensor.to(*args, **kwargs)``."""
-        return SparseGPParams(*(getattr(self, f.name).to(*args, **kwargs) for f in fields(self)))
+        return SparseGPParams(*(t.to(*args, **kwargs) for t in self.tensors()))
+
+    def tensors(self) -> list:
+        """The leaves in field order."""
+        return [getattr(self, f.name) for f in fields(self)]
 
 
 @dataclass
@@ -66,11 +70,12 @@ class GPCache:
 def init_sparse_gp(generator: torch.Generator, in_dim: int, out_dim: int,
                    num_points: int, gp_var: float, gp_len: float,
                    zeta_mean: float, zeta_pos: float, zeta_var: float,
-                   dtype=torch.float32, device="cpu") -> SparseGPParams:
+                   dtype=torch.float32, device=None) -> SparseGPParams:
     """The reference's distributions: z ~ U(-zeta_pos, zeta_pos),
     mean = zeta_mean * U(0, 1), constant variational variance and kernel
-    hyperparameters. Draws z then mean from ``generator``."""
-    kw = dict(dtype=dtype, device=device)
+    hyperparameters. Draws z then mean from ``generator``, on its device
+    unless ``device`` says otherwise."""
+    kw = dict(dtype=dtype, device=generator.device if device is None else device)
     z = torch.rand((num_points, in_dim), generator=generator, **kw)
     z = z * (2.0 * zeta_pos) - zeta_pos
     mean = zeta_mean * torch.rand((num_points, out_dim), generator=generator, **kw)

@@ -63,7 +63,7 @@ def jax_noise(port_model, key, t_len, b):
 
 def pair(seq_len=8, recog_len=2, backward_mode="sequential", **overrides):
     jm = make_model(seq_len=seq_len, recog_len=recog_len, backward_mode=backward_mode)
-    return jm, CBFSSM(port_config(jm, **overrides))
+    return jm, CBFSSM(port_config(jm, **overrides), device="cpu")
 
 
 def batch(seq_len=8, seed=0):
@@ -75,7 +75,7 @@ def assert_loss_parity(jm, pm, u, y, key, condition=True, weights=None, param_se
     params = jm.init(jax.random.PRNGKey(param_seed))
     want, want_aux = jm.loss(params, u, y, key, condition=condition,
                              weights=None if weights is None else jnp.asarray(weights))
-    got, got_aux = pm.loss(cbfssm_params_from_numpy(params_numpy(params)), u, y,
+    got, got_aux = pm.loss(cbfssm_params_from_numpy(params_numpy(params), device="cpu"), u, y,
                            condition=condition, weights=weights,
                            noise=jax_noise(pm, key, u.shape[1], u.shape[0]))
     np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
@@ -113,7 +113,7 @@ def test_padded_weights_match_jax_and_ignore_pad_content():
     u, y = batch()
     w = np.asarray([1.0, 0.0])
     assert_loss_parity(jm, pm, u, y, jax.random.PRNGKey(5), weights=w)
-    params = cbfssm_params_from_numpy(params_numpy(jm.init(jax.random.PRNGKey(0))))
+    params = cbfssm_params_from_numpy(params_numpy(jm.init(jax.random.PRNGKey(0))), device="cpu")
     noise = jax_noise(pm, jax.random.PRNGKey(5), 8, 2)
     u2, y2 = u.copy(), y.copy()
     u2[1] *= 100.0
@@ -131,7 +131,7 @@ def test_predict_matches_jax(mode, condition):
     params = jm.init(jax.random.PRNGKey(2))
     key = jax.random.PRNGKey(7)
     want = jm.predict(params, u, y, key, condition=condition)
-    got = pm.predict(cbfssm_params_from_numpy(params_numpy(params)), u, y,
+    got = pm.predict(cbfssm_params_from_numpy(params_numpy(params), device="cpu"), u, y,
                      condition=condition, noise=jax_noise(pm, key, 8, 2))
     for f in dataclasses.fields(got):
         np.testing.assert_allclose(getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name)),
@@ -142,7 +142,7 @@ def test_predict_matches_jax(mode, condition):
 def test_gp_impl_pallas_on_cpu_equals_solve_free(mode):
     jm, plain = pair(backward_mode=mode)
     _, fused = pair(backward_mode=mode, gp_impl="pallas")
-    params = cbfssm_params_from_numpy(params_numpy(jm.init(jax.random.PRNGKey(0))))
+    params = cbfssm_params_from_numpy(params_numpy(jm.init(jax.random.PRNGKey(0))), device="cpu")
     u, y = batch()
     noise = jax_noise(plain, jax.random.PRNGKey(11), 8, 2)
     l1, _ = plain.loss(params, u, y, noise=noise)
@@ -207,9 +207,9 @@ def test_segmentation_array_equal(seq_len, recog_len):
 def test_convert_places_and_checks():
     jm, _ = pair()
     tree = params_numpy(jm.init(jax.random.PRNGKey(0)))
-    p = cbfssm_params_from_numpy(tree, dtype=torch.float32)
+    p = cbfssm_params_from_numpy(tree, device="cpu", dtype=torch.float32)
     assert p.gp_f.z.dtype == torch.float32 and p.var_y_unc.device.type == "cpu"
     np.testing.assert_array_equal(p.gp_b.mean.numpy(), tree["gp_b"]["mean"].astype(np.float32))
     del tree["gp_f"]["kern_len_unc"]
     with pytest.raises(KeyError, match="kern_len_unc"):
-        cbfssm_params_from_numpy(tree)
+        cbfssm_params_from_numpy(tree, device="cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``cbfssm_tpu_torch`` (every module)
-or ``chip_smoke`` loads no JAX, and ``chip_smoke.py`` refuses to run
-without a GPU or outside the repository, printing no result."""
+or ``chip_smoke`` loads no JAX and no matplotlib, and ``chip_smoke.py``
+refuses to run without a GPU or outside the repository, printing no
+result."""
 
 import shutil
 import subprocess
@@ -17,9 +18,14 @@ import sys
 import cbfssm_tpu_torch, cbfssm_tpu_torch.config, cbfssm_tpu_torch.convert
 import cbfssm_tpu_torch.serving, cbfssm_tpu_torch.models, cbfssm_tpu_torch.data
 import cbfssm_tpu_torch.ops._build, cbfssm_tpu_torch.ops.fused_predict
+import cbfssm_tpu_torch.training, cbfssm_tpu_torch.training.checkpoint
+import cbfssm_tpu_torch.training.trainer, cbfssm_tpu_torch.utils.profiling
+import cbfssm_tpu_torch.outputs, cbfssm_tpu_torch.outputs.calibration
+import cbfssm_tpu_torch.outputs.outputs_robomove, cbfssm_tpu_torch.run_robomove
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu',
+                                    'matplotlib'))
 print(bad)
 """
 

@@ -33,7 +33,7 @@ def tiny_config(gp_impl="pallas"):
 
 @pytest.fixture(scope="module")
 def served():
-    model = CBFSSM(tiny_config())
+    model = CBFSSM(tiny_config(), device="cpu")
     return model, model.init(torch.Generator().manual_seed(0))
 
 
