@@ -11,10 +11,14 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    kernels, ``gp_predict`` and ``gp_predict_residuals``);
 3. kernel: ``gp_predict`` against its plain torch version at the two
    RoboMove shapes and a ragged one, in float32 (rtol 2e-5, atol 1e-5)
-   and float64 (rtol 1e-10, atol 1e-12), with both times;
+   and float64 (rtol 1e-10, atol 1e-12); times: the kernel's device time
+   per launch (a CUDA graph of 20 back-to-back launches replayed 10
+   times, ``kernel_timing.graph_replay_ms``) at the two RoboMove shapes,
+   and 50 eager back-to-back calls of the kernel and of the plain
+   version (host issue included);
 3b. residual kernel and gradient: ``gp_predict_residuals`` against
    ``fused_predict_residuals_plain`` (mean, var, kmn, w) at the same
-   shapes and tolerances, with both times; and in float64 the gradients
+   shapes and tolerances, timed the same way; and in float64 the gradients
    of ``FusedPredict`` (kernel forward, analytic backward) against
    torch autograd of ``fused_predict_plain`` for all seven inputs
    (rtol 1e-8, atol 1e-10 times the largest entry);
@@ -48,7 +52,12 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    kernels, their summed time, the busy share and the largest kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their checks and times.
+is the card, and the line before that lists the kernels with their
+checks and times: ``ms`` is the graph-replayed device time at the
+recognition shape (float32, N = 12,800), ``ms_n1600`` the same at the
+forward shape (N = 1,600), each beside its bound (``bound_ms``,
+``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure and
+``device_ms_f64`` has the same device times in float64.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ SHAPES = {
     "forward N=1600 M=100 DI=6 D=4": (1600, 100, 6, 4),
     "ragged N=37 M=11 DI=5 D=3": (37, 11, 5, 3),
 }
+TIMED_N = (12800, 1600)  # the RoboMove shapes, timed by graph replay
 
 
 def fail(msg: str) -> None:
@@ -87,24 +97,6 @@ def config(dtype: str, gp_impl: str) -> dict:
     from cbfssm_tpu_torch import run_robomove
 
     return run_robomove.model_config(0, {"dtype": dtype, "gp_impl": gp_impl})
-
-
-def kernel_inputs(rng, n, m, di, d, dtype, device):
-    """Random well-conditioned predict operands (the construction of the
-    JAX package's tests/test_pallas_gp.py make_inputs)."""
-    import numpy as np
-    import torch
-
-    def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-
-    x = rng.normal(size=(n, di))
-    z = rng.normal(size=(m, di))
-    inv_ls = 1.0 / rng.uniform(0.5, 2.0, size=di)
-    a = rng.normal(size=(m, m))
-    kinv = np.linalg.inv(a @ a.T + m * np.eye(m))
-    return (t(x), t(z * inv_ls), t(inv_ls), t(0.7), t(kinv),
-            t(rng.normal(size=(m, d))), t(rng.uniform(0.01, 0.5, size=(m, d))))
 
 
 def sync():
@@ -128,6 +120,10 @@ def bound(n, m, di, d, dtype: str, residuals: bool):
     t_ops = ops / PEAK_FLOPS[dtype]
     t_bytes = elems * itemsize / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fmt_ms(ms) -> str:
+    return "not timed" if ms is None else f"{ms:.5f} ms"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -178,6 +174,7 @@ def phase_kernel():
     import torch
 
     from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.utils.kernel_timing import graph_replay_ms, kernel_inputs
 
     tol = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
     rng = np.random.default_rng(0)
@@ -200,9 +197,10 @@ def phase_kernel():
                     max_err = max(max_err, float(err.max()))
             k_ms = cuda_ms(lambda: fp.fused_predict(*args), 50)
             p_ms = cuda_ms(lambda: fp.fused_predict_plain(*args), 50)
-            times[(dtype, n)] = (k_ms, p_ms)
-            print(f"kernel {str(dtype)[6:]} {label}: ok; kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms", flush=True)
+            dev_ms = graph_replay_ms(lambda: fp.fused_predict(*args)) if n in TIMED_N else None
+            times[(dtype, n)] = (dev_ms, k_ms, p_ms)
+            print(f"kernel {str(dtype)[6:]} {label}: ok; device {fmt_ms(dev_ms)} (graph "
+                  f"replay), eager kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
     return max_err, times
 
 
@@ -213,6 +211,7 @@ def phase_residual_kernel():
     import torch
 
     from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.utils.kernel_timing import graph_replay_ms, kernel_inputs
 
     tol = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
     rng = np.random.default_rng(1)
@@ -234,9 +233,12 @@ def phase_residual_kernel():
                     max_err = max(max_err, float(err.max()))
             k_ms = cuda_ms(lambda: fp.fused_predict_residuals(*args), 50)
             p_ms = cuda_ms(lambda: fp.fused_predict_residuals_plain(*args), 50)
-            times[(dtype, n)] = (k_ms, p_ms)
-            print(f"residual kernel {str(dtype)[6:]} {label}: ok; kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms", flush=True)
+            dev_ms = (graph_replay_ms(lambda: fp.fused_predict_residuals(*args))
+                      if n in TIMED_N else None)
+            times[(dtype, n)] = (dev_ms, k_ms, p_ms)
+            print(f"residual kernel {str(dtype)[6:]} {label}: ok; device {fmt_ms(dev_ms)} "
+                  f"(graph replay), eager kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms",
+                  flush=True)
             if dtype != torch.float64:
                 continue
             leaves = [a.clone().requires_grad_(True) for a in args]
@@ -558,6 +560,7 @@ def main() -> None:
     if "jax" in sys.modules:
         fail("jax was imported")
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
+    n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []
     for name, line, err, t, launches, by_path, residuals in (
         ("gp_predict", 79, max_err, times, serve_launches + train_launches,
@@ -566,7 +569,8 @@ def main() -> None:
          {"serving": 0, "training": residual_launches}, True),
     ):
         bound_ms, bound_by = bound(n, m, di, d, "float32", residuals)
-        k_ms, p_ms = t[(torch.float32, n)]
+        bound2_ms, bound2_by = bound(n2, m2, di2, d2, "float32", residuals)
+        dev_ms, k_ms, p_ms = t[(torch.float32, n)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -575,12 +579,18 @@ def main() -> None:
             "launches": launches,
             "launches_by_path": by_path,
             "max_abs_err": err,
-            "ms": k_ms,
+            "ms": dev_ms,
             "plain_ms": p_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
             "shape": f"float32 N={n} M={m} DI={di} D={d}",
+            "ms_n1600": t[(torch.float32, n2)][0],
+            "bound_ms_n1600": bound2_ms,
+            "bound_by_n1600": bound2_by,
+            "shape_n1600": f"float32 N={n2} M={m2} DI={di2} D={d2}",
+            "eager_ms": k_ms,
+            "device_ms_f64": {f"N={nn}": t[(torch.float64, nn)][0] for nn in TIMED_N},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -23,6 +23,7 @@ import torch
 
 from cbfssm_tpu_torch.ops import _build
 from cbfssm_tpu_torch.ops import fused_predict as fp
+from cbfssm_tpu_torch.utils.kernel_timing import KERNEL_SHAPES, clamp_kernel_inputs, kernel_inputs
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -47,9 +48,7 @@ def to_torch(inputs, dtype=torch.float64):
 
 
 def plain_inputs(rng, n, m, di, d, dtype, device):
-    """The same construction in numpy (no JAX): chip_smoke.kernel_inputs."""
-    from chip_smoke import kernel_inputs
-
+    """The same construction in numpy (no JAX): kernel_timing.kernel_inputs."""
     return kernel_inputs(rng, n, m, di, d, dtype, device)
 
 
@@ -177,7 +176,7 @@ def test_nvcc_missing_raises(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-5),
                                              (torch.float64, 1e-10, 1e-12)])
-@pytest.mark.parametrize("n,m,di,d", [(12800, 100, 6, 2), (1600, 100, 6, 4), (37, 11, 5, 3)])
+@pytest.mark.parametrize("n,m,di,d", KERNEL_SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol, atol, n, m, di, d):
     args = plain_inputs(np.random.default_rng(n), n, m, di, d, dtype, cuda_device)
     before = fp.fused_predict.launches
@@ -189,3 +188,31 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol, atol, n, m, di, d):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
     with pytest.raises(ValueError, match="float32 or float64"):
         fp.fused_predict(*(a.half() for a in args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_on_d2_clamp_inputs(cuda_device, dtype):
+    """``gp_predict`` where the d2 clamp engages (64 rows, each next to an
+    inducing point). alpha is the identity (D = M = 11), so that mean is
+    kmn exactly: each entry is one product with 1 plus products with 0.
+    In both dtypes mean never exceeds kvar (an unclamped negative d2
+    would give kmn > kvar; in float32 d2 rounds to multiples of 0.5 here,
+    see clamp_kernel_inputs), var is not negative and all is finite. In
+    float64 it matches the plain version at the tolerance of
+    test_d2_clamp_inputs_forward_matches (atol 1e-8: d2 carries ~1e-9
+    absolute rounding that depends on the summation order)."""
+    x, zs, inv_ls, kvar, kinv, _, _ = clamp_kernel_inputs(dtype, cuda_device, n=64)
+    m = zs.shape[0]
+    alpha = torch.eye(m, dtype=dtype, device=cuda_device)
+    var_q = torch.full((m, m), 0.1, dtype=dtype, device=cuda_device)
+    args = (x, zs, inv_ls, kvar, kinv, alpha, var_q)
+    mean, var = fp.fused_predict(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(mean).all() and torch.isfinite(var).all()
+    assert (var >= 0).all()
+    assert (mean <= kvar).all()
+    if dtype == torch.float64:
+        want = fp.fused_predict_plain(*args)
+        for g, ref in zip((mean, var), want):
+            torch.testing.assert_close(g, ref, rtol=1e-10, atol=1e-8)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from cbfssm_tpu_torch.ops import fused_predict as fp
+from cbfssm_tpu_torch.utils.kernel_timing import KERNEL_SHAPES, clamp_kernel_inputs, kernel_inputs
 
 GRAD_RTOL, GRAD_ATOL = 1e-7, 1e-10
 
@@ -227,15 +228,13 @@ def test_no_function_node_without_grad():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-5),
                                              (torch.float64, 1e-10, 1e-12)])
-@pytest.mark.parametrize("n,m,di,d", [(12800, 100, 6, 2), (1600, 100, 6, 4), (37, 11, 5, 3)])
+@pytest.mark.parametrize("n,m,di,d", KERNEL_SHAPES)
 def test_cuda_residual_kernel_and_grads(dtype, rtol, atol, n, m, di, d):
     """On the card: ``gp_predict_residuals`` against its plain version
     (mean, var, kmn, w), and in float64 the gradients of
     ``FusedPredict`` against autograd of the plain version (rtol 1e-8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
-    from chip_smoke import kernel_inputs
-
     args = kernel_inputs(np.random.default_rng(n), n, m, di, d, dtype, "cuda")
     before = fp.fused_predict_residuals.launches
     got = fp.fused_predict_residuals(*args)
@@ -251,3 +250,29 @@ def test_cuda_residual_kernel_and_grads(dtype, rtol, atol, n, m, di, d):
         want_g = torch.autograd.grad(fp.fused_predict_plain(*leaves), leaves, cts)
         for a, b in zip(got_g, want_g):
             torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_residual_kernel_on_d2_clamp_inputs(dtype):
+    """``gp_predict_residuals`` where the d2 clamp engages (64 rows, each
+    next to an inducing point): kmn never exceeds kvar (an unclamped
+    negative d2 would give kmn > kvar; in float32 d2 rounds to multiples
+    of 0.5 here, see clamp_kernel_inputs), var is not negative, all
+    finite; in float64 mean, var, kmn and w match the plain version at
+    rtol 1e-10 / atol 1e-8 (the clamp-input tolerance of
+    tests/test_torch_fused_predict.py: d2 carries ~1e-9 absolute rounding
+    that depends on the summation order; in float32 ~0.5, so there only
+    the clamp properties are checked)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
+    args = clamp_kernel_inputs(dtype, "cuda", n=64)
+    got = fp.fused_predict_residuals(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert (got[1] >= 0).all()
+    assert (got[2] <= args[3]).all()
+    if dtype == torch.float64:
+        mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+        for g, ref in zip(got, (mean, var, kmn, w)):
+            torch.testing.assert_close(g, ref, rtol=1e-10, atol=1e-8)
