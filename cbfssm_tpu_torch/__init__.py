@@ -4,12 +4,13 @@ A second package beside the JAX one, written for one NVIDIA H100. It
 imports ``torch`` and never ``jax``, ``flax``, ``optax`` or ``orbax``;
 the JAX package is the reference it is tested against.
 
-This slice serves free-running prediction with ``CBFSSM``:
+It serves and trains ``CBFSSM``, ``CBFSSMHALF`` and ``PRSSM``:
 
 - :mod:`cbfssm_tpu_torch.ops`     — transforms, RBF kernel, Cholesky,
   distributions, sparse GP, and the fused GP predict (CUDA kernel
   ``csrc/gp_predict.cu`` beside its plain torch version).
-- :mod:`cbfssm_tpu_torch.models`  — ``CBFSSM`` (loss value and predict).
+- :mod:`cbfssm_tpu_torch.models`  — ``CBFSSM``, ``CBFSSMHALF`` (with
+  its streaming entry points) and ``PRSSM``, and their recognition nets.
 - :mod:`cbfssm_tpu_torch.data`    — ``.mat`` datasets and windowing.
 - :mod:`cbfssm_tpu_torch.serving` — fixed-shape, bucketed and
   micro-batched predictors.

@@ -55,7 +55,11 @@
 // Tiles. TN is a multiple of 4 chosen from N: the smallest for which the
 // grid has at most kBlocksPerSm = 2 blocks per SM, so that the main-path
 // shapes fill the card's 132 SMs in one wave; a tile that does not fit
-// the opt-in shared-memory limit shrinks by 4 rows until it does.
+// the opt-in shared-memory limit shrinks by 4 rows until it does. All of
+// kinv is staged, so M is capped: gp_predict_max_m gives the largest M
+// that fits at the smallest tile, and the wrappers refuse a larger one.
+// D = 0 (no output column) is allowed; N must be positive (the
+// wrappers return empty outputs at N = 0 without calling in).
 // __launch_bounds__(256, 2) holds a thread to 128 registers, so that two
 // blocks fit an SM. At M = 100, DI = 6 (dynamic shared memory per block;
 // the last two rows are the serving path at batch 1, whose grids are
@@ -482,6 +486,14 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
                     break;
             }
         }
+        if (kResiduals && d == 0) {
+            // no output column, so reduce_row did not run: write the
+            // residual rows here
+            for (int k = lane; k < m; k += 32) {
+                kmn_row[k] = krow[k];
+                w_row[k] = wrow[k];
+            }
+        }
     }
 }
 
@@ -532,18 +544,33 @@ cudaError_t reserve_smem(int dev, size_t bytes) {
     return err;
 }
 
+// The current device's index and limits.
+cudaError_t current_limits(int* dev, int* limit, int* sms) {
+    cudaError_t err = cudaGetDevice(dev);
+    if (err != cudaSuccess) return err;
+    if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    return device_limits(*dev, limit, sms);
+}
+
+// The largest M whose block, at the smallest row tile, fits `limit`
+// bytes of shared memory (the block grows with M).
+template <typename T>
+int max_m(int di, int d, int limit) {
+    int m = 0;
+    while (smem_bytes<T>(m + 1, di, d, kR) <= (size_t)limit) ++m;
+    return m;
+}
+
 template <typename T, bool kResiduals>
 int launch(const T* x, const T* zs, const T* inv_ls, const T* kvar,
            const T* kinv, const T* alpha, const T* var_q, T* mean, T* var,
            T* kmn, T* w, int n, int m, int di, int d, void* stream) {
     int dev = 0, limit = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    err = device_limits(dev, &limit, &sms);
+    cudaError_t err = current_limits(&dev, &limit, &sms);
     if (err != cudaSuccess) return (int)err;
     // shrink the row tile until the block fits; a kinv too large for
-    // shared memory at any tile is refused by cudaFuncSetAttribute below
+    // shared memory at any tile (M above max_m) is refused by
+    // cudaFuncSetAttribute below
     int tn = tile_rows(n, sms);
     while (tn > kR && smem_bytes<T>(m, di, d, tn) > (size_t)limit) tn -= kR;
     const size_t bytes = smem_bytes<T>(m, di, d, tn);
@@ -597,6 +624,17 @@ int gp_predict_residuals_f64(const double* x, const double* zs, const double* in
 
 const char* gp_predict_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// The largest M (inducing points) the kernels take at (DI, D) on the
+// current device, in float64 when `f64` is nonzero, else float32: all of
+// kinv and the smallest row tile must fit the block's opt-in shared
+// memory. A negative value is minus a CUDA error code.
+int gp_predict_max_m(int f64, int di, int d) {
+    int dev = 0, limit = 0, sms = 0;
+    const cudaError_t err = current_limits(&dev, &limit, &sms);
+    if (err != cudaSuccess) return -(int)err;
+    return f64 ? max_m<double>(di, d, limit) : max_m<float>(di, d, limit);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-"""SSM models of the port. ``CBFSSM``: ``init(generator) -> params``,
-``loss(params, u, y, generator | noise=, condition, weights) -> (loss,
-aux)``, ``predict(params, u, y, generator | noise=, condition) ->
-PredictOutput``."""
+"""SSM models of the port: ``CBFSSM``, ``CBFSSMHALF`` and ``PRSSM``, each
+with ``init(generator) -> params``, ``loss(params, u, y, generator |
+noise=, condition, weights) -> (loss, aux)`` and ``predict(params, u, y,
+generator | noise=, condition) -> PredictOutput``."""
 
 from cbfssm_tpu_torch.models.cbfssm import CBFSSM  # noqa: F401
+from cbfssm_tpu_torch.models.cbfssmhalf import CBFSSMHALF  # noqa: F401
+from cbfssm_tpu_torch.models.prssm import PRSSM  # noqa: F401

@@ -40,7 +40,7 @@ class CBFSSMParams:
 
     def to(self, *args, **kwargs) -> "CBFSSMParams":
         """Every leaf through ``Tensor.to(*args, **kwargs)``."""
-        return CBFSSMParams.from_tensors([t.to(*args, **kwargs) for t in self.tensors()])
+        return self.with_tensors([t.to(*args, **kwargs) for t in self.tensors()])
 
     def tensors(self) -> list:
         """The leaves in a fixed order (gp_f's, gp_b's in
@@ -58,9 +58,15 @@ class CBFSSMParams:
         return CBFSSMParams(gp.SparseGPParams(*t[:n]), gp.SparseGPParams(*t[n:2 * n]),
                             t[2 * n], t[2 * n + 1])
 
+    def with_tensors(self, tensors) -> "CBFSSMParams":
+        """Params of this structure with the leaves ``tensors`` (in
+        :meth:`tensors` order): how the trainer and the outputs rebuild
+        any model's params."""
+        return CBFSSMParams.from_tensors(tensors)
+
     def detach(self) -> "CBFSSMParams":
         """The same values, cut from autograd."""
-        return CBFSSMParams.from_tensors([t.detach() for t in self.tensors()])
+        return self.with_tensors([t.detach() for t in self.tensors()])
 
 
 @dataclass
@@ -276,6 +282,7 @@ class CBFSSM(BaseSSM):
 
     def _rollout(self, params: CBFSSMParams, u, y, generator=None,
                  condition: bool = True, noise: RolloutNoise | None = None):
+        self._check_precision()
         var_x = transforms.positive(params.var_x_unc)
         var_y = transforms.positive(params.var_y_unc)
         cache_f, cache_b = gp.precompute_pair(params.gp_f, params.gp_b, self.jitter)

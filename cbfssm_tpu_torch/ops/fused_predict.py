@@ -12,7 +12,10 @@ Port of ``cbfssm_tpu/ops/pallas/gp_predict.py``:
   version; a CUDA float32/float64 tensor launches the kernel; anything
   else raises. There is no fallback from a kernel to the plain version:
   a build or launch failure raises. (The JAX package instead runs its
-  jnp math on every backend but the TPU.)
+  jnp math on every backend but the TPU.) N = 0 rows give empty outputs
+  without a launch. All of kinv is staged in shared memory, so M is
+  capped (:func:`max_inducing_points`); a larger M raises before the
+  launch.
 - :func:`fused_predict_bwd` is the analytic VJP ``_bwd``, in torch ops,
   and :class:`FusedPredict` the ``torch.autograd.Function`` that pairs
   it with the residual-emitting forward, as ``jax.custom_vjp`` pairs
@@ -68,7 +71,30 @@ def _library():
             fn.restype = ctypes.c_int
     lib.gp_predict_error_string.argtypes = [ctypes.c_int]
     lib.gp_predict_error_string.restype = ctypes.c_char_p
+    lib.gp_predict_max_m.argtypes = [ctypes.c_int] * 3
+    lib.gp_predict_max_m.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _max_m(device_index: int, f64: bool, di: int, d: int) -> int:
+    lib = _library()
+    with torch.cuda.device(device_index):
+        got = lib.gp_predict_max_m(int(f64), di, d)
+    if got < 0:
+        raise RuntimeError(f"gp_predict_max_m failed ({-got}: "
+                           f"{lib.gp_predict_error_string(-got).decode()})")
+    return got
+
+
+def max_inducing_points(dtype, di: int, d: int, device="cuda") -> int:
+    """The largest M (inducing points) the kernels take at (DI, D) in
+    ``dtype`` on the CUDA ``device``: all of kinv is staged in shared
+    memory, with the smallest row tile, within the device's opt-in limit
+    per block. Computed by the kernel library from its own layout."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _max_m(index, dtype == torch.float64, di, d)
 
 
 def _check(x, zs, inv_ls, kvar, kinv, alpha, var_q):
@@ -98,13 +124,24 @@ def _check(x, zs, inv_ls, kvar, kinv, alpha, var_q):
     return n, m, di, d
 
 
+def _outputs(x, n, m, d, n_out):
+    """Empty output buffers: [N, D] mean and var, then [N, M] kmn and w."""
+    shapes = [(n, d), (n, d), (n, m), (n, m)][:n_out]
+    return [torch.empty(s, dtype=x.dtype, device=x.device) for s in shapes]
+
+
 def _launch(name, inputs, n, m, di, d, n_out):
     """Launch entry ``name`` + ``_f32``/``_f64`` on the inputs' stream;
-    returns the ``n_out`` outputs ([N, D] mean and var, then [N, M] kmn
-    and w)."""
+    returns the ``n_out`` outputs (see :func:`_outputs`). Raises before
+    the launch if M is past the kernel's shared-memory cap."""
     x = inputs[0]
-    shapes = [(n, d), (n, d), (n, m), (n, m)][:n_out]
-    outs = [torch.empty(s, dtype=x.dtype, device=x.device) for s in shapes]
+    cap = max_inducing_points(x.dtype, di, d, x.device)
+    if m > cap:
+        raise ValueError(
+            f"{name}: M={m} inducing points do not fit the kernel's shared memory at "
+            f"DI={di}, D={d} in {x.dtype} on {x.device}; the largest M that fits is {cap}"
+        )
+    outs = _outputs(x, n, m, d, n_out)
     entry = name + ("_f32" if x.dtype == torch.float32 else "_f64")
     lib = _library()
     with torch.cuda.device(x.device):
@@ -125,6 +162,8 @@ def _fused_predict_value(x, zs, inv_ls, kvar, kinv, alpha, var_q):
     n, m, di, d = _check(*args)
     if x.device.type == "cpu":
         return fused_predict_plain(*args)
+    if n == 0:  # no rows: empty outputs, no launch
+        return tuple(_outputs(x, n, m, d, 2))
     mean, var = _launch("gp_predict", args, n, m, di, d, 2)
     fused_predict.launches += 1
     return mean, var
@@ -144,6 +183,8 @@ def fused_predict_residuals(x, zs, inv_ls, kvar, kinv, alpha, var_q):
     if x.device.type == "cpu":
         mean, var, (_, kmn, w) = fused_predict_residuals_plain(*args)
         return mean, var, kmn, w
+    if n == 0:  # no rows: empty outputs, no launch
+        return tuple(_outputs(x, n, m, d, 4))
     outs = _launch("gp_predict_residuals", args, n, m, di, d, 4)
     fused_predict_residuals.launches += 1
     return tuple(outs)

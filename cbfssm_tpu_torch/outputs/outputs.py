@@ -87,7 +87,7 @@ class Outputs:
                 torch.Generator(device=self.model.device).manual_seed(self.seed)
             )
             saved = checkpoint.restore(best, map_location=self.model.device)["params"]
-            return type(template).from_tensors(
+            return template.with_tensors(
                 [s.to(t.dtype) for s, t in zip(saved, template.tensors(), strict=True)]
             )
         raise RuntimeError(f"no trained parameters: neither a trainer nor {best} available")

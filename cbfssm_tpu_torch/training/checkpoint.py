@@ -4,7 +4,7 @@ Best-by-train-loss goes to ``best.ckpt``, the final state to
 ``model.ckpt``; evaluation restores best, curriculum retraining restores
 last. A checkpoint is one ``torch.save`` file of
 ``{"params": [tensor, ...], "opt_state": optimizer.state_dict()}``
-(params in ``CBFSSMParams.tensors()`` order, all on the CPU), written to
+(params in the order of the params' ``tensors()``, all on the CPU), written to
 a temporary file and renamed into place, so a reader never sees half a
 file. The format is not the JAX package's orbax directory: neither
 package reads the other's checkpoints. Weights cross over through

@@ -56,15 +56,17 @@ def batch_seed(seed: int, epoch: int, split: int, i: int) -> int:
 
 
 class Trainer:
-    """Trains ``model`` (a ``CBFSSM``) on its device with Adam.
+    """Trains ``model`` (a ``CBFSSM``, ``CBFSSMHALF`` or ``PRSSM``) on
+    its device with Adam.
 
     ``seed`` fixes the init params (``model.init``), the shuffles
     (``np.random.default_rng(seed)``, as in the JAX trainer) and the
     rollout noise of every batch (:func:`batch_seed`). Two test seams
     inject what the JAX trainer draws inside: ``init_params`` replaces
     ``model.init`` (e.g. the converted JAX init), and
-    ``noise_fn(epoch, split, i, b, t_len) -> RolloutNoise | None``
-    replaces the rollout's draws.
+    ``noise_fn(epoch, split, i, b, t_len) -> noise | None`` replaces the
+    rollout's draws (the model's ``noise=``: a ``RolloutNoise`` for
+    CBFSSM, a ``[T-1, B, S, 1]`` tensor for the others).
     """
 
     def __init__(self, model, model_dir, mesh=None, seed=0, metrics_path=None,
@@ -102,7 +104,7 @@ class Trainer:
         else:
             params = self.model.init(torch.Generator(device=self.device).manual_seed(self.seed))
         leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
-        self.params = type(params).from_tensors(leaves)
+        self.params = params.with_tensors(leaves)
         self.optimizer = torch.optim.Adam(
             leaves, lr=float(self.model.config.learning_rate), betas=(0.9, 0.999), eps=1e-8
         )

@@ -8,7 +8,9 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
 
 1. device: name and power limit (``nvidia-smi``), TF32 off;
 2. build: ``nvcc`` builds ``cbfssm_tpu_torch/csrc/gp_predict.cu`` (both
-   kernels, ``gp_predict`` and ``gp_predict_residuals``);
+   kernels, ``gp_predict`` and ``gp_predict_residuals``), and the
+   library reports the largest M (inducing points) the kernels take at
+   DI = 6, D = 4 and D = 2 in both dtypes;
 3. kernel: ``gp_predict`` against its plain torch version at the two
    RoboMove shapes and a ragged one, in float32 (rtol 2e-5, atol 1e-5)
    and float64 (rtol 1e-10, atol 1e-12); times: the kernel's device time
@@ -49,7 +51,25 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    the peak allocated device memory of the epoch, for the main-path
    epoch and one more epoch under ``'solve_free'`` (B = 32, float32),
    and one further step of each under ``torch.profiler``: device
-   kernels, their summed time, the busy share and the largest kernels.
+   kernels, their summed time, the busy share and the largest kernels;
+6. the other models: CBFSSMHALF and PRSSM with the GRU recognition net
+   ('rnn') at the same width (var_y of length dim_y = 2), float32,
+   ``gp_impl='pallas'``. Each serves as in phase 4 (every chunk
+   launches ``gp_predict`` 299 times, one per forward step: these
+   models have no recognition GP) and trains one epoch as in phase 5
+   (16 x 299 ``gp_predict_residuals``, 3 x 299 ``gp_predict``), with the
+   same parity checks of the two ``gp_impl`` paths (training from the
+   trained params, predict outputs in float64 at rtol 1e-8), step time,
+   peak memory, one profiled step and request latency (pallas). Last,
+   the float32 GRU (the trained CBFSSMHALF leaves) and a PR-SSM conv
+   net (recog_len 16) on the card against the same nets in float64 on
+   the CPU: rtol 1e-5, atol 1e-6 times the largest entry, which TF32
+   would miss.
+
+Each phase prints its seconds. The main paths are phases 4, 5 and 6's
+four: each sets the launch counts to 0 just before it and reads them
+just after, and the kernels line lists them by path
+(``launches_by_path``; ``launches`` is their sum).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card, and the line before that lists the kernels with their
@@ -72,7 +92,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEQ_LEN, SEQ_STRIDE = 300, 50
 BUCKETS = (1, 8, 32)
-STEPS_PER_CHUNK = 2 * 50 + (SEQ_LEN - 1)  # blocked recognition + forward
+STEPS_PER_CHUNK = 2 * 50 + (SEQ_LEN - 1)  # CBFSSM: blocked recognition + forward
+FORWARD_STEPS = SEQ_LEN - 1  # CBFSSMHALF and PRSSM: the forward rollout only
 TRAIN_WINDOWS, TEST_WINDOWS, BATCH = 495, 95, 32  # RoboMove(300, 50)
 DEVICE = "cuda"
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): CUDA-core FP32
@@ -92,11 +113,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def config(dtype: str, gp_impl: str) -> dict:
+def config(dtype: str, gp_impl: str, **overrides) -> dict:
     """The phase-0 RoboMove config of the port's run script."""
     from cbfssm_tpu_torch import run_robomove
 
-    return run_robomove.model_config(0, {"dtype": dtype, "gp_impl": gp_impl})
+    return run_robomove.model_config(0, {"dtype": dtype, "gp_impl": gp_impl, **overrides})
 
 
 def sync():
@@ -161,12 +182,17 @@ def phase_device():
 
 
 def phase_build():
+    import torch
+
     from cbfssm_tpu_torch.ops import fused_predict as fp
 
     t0 = time.perf_counter()
     fp._library()
     print(f"build: gp_predict.cu built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    caps = {f"{dt} D={d}": fp.max_inducing_points(getattr(torch, dt), 6, d)
+            for dt in ("float32", "float64") for d in (4, 2)}
+    print(f"inducing-point cap at DI=6 (largest M the kernels take): {caps}", flush=True)
 
 
 def phase_kernel():
@@ -262,39 +288,35 @@ def phase_residual_kernel():
     return max_err, times
 
 
-def phase_serving():
+def check_output(out, n, where):
+    """Shapes (dim_y 2, dim_x 4), finiteness and positive variances of a
+    served PredictOutput of n rows."""
     import numpy as np
-    import torch
 
-    from cbfssm_tpu_torch.data import RoboMove
-    from cbfssm_tpu_torch.models import CBFSSM
+    for name, dim in (("pred_mean", 2), ("pred_var", 2), ("internal_mean", 4),
+                      ("internal_var", 4), ("sde", 2)):
+        a = getattr(out, name)
+        if a.shape != (n, SEQ_LEN, dim):
+            fail(f"{where}: {name} has shape {a.shape}, want {(n, SEQ_LEN, dim)}")
+        if not np.isfinite(a).all():
+            fail(f"{where}: {name} is not finite")
+    if not (out.pred_var > 0).all() or not np.isfinite(out.mse):
+        fail(f"{where}: non-positive pred_var or non-finite mse")
+
+
+def serve_main_path(model, params, u_all, y_all, steps_per_chunk: int, where: str) -> int:
+    """A serving main path: 40 requests through ``BucketedPredictor`` +
+    ``MicroBatcher`` from 4 threads, then one 40-row request (chunks of
+    32 and 8). The launch counts go to 0 just before and are read just
+    after: every dispatched chunk must launch ``gp_predict``
+    ``steps_per_chunk`` times, and ``gp_predict_residuals`` never runs.
+    Returns the ``gp_predict`` launches."""
     from cbfssm_tpu_torch.ops import fused_predict as fp
-    from cbfssm_tpu_torch.serving import BucketedPredictor, CompiledPredictor, MicroBatcher
+    from cbfssm_tpu_torch.serving import BucketedPredictor, MicroBatcher
 
-    ds = RoboMove(SEQ_LEN, SEQ_STRIDE)
-    u_all = ds.test_in_batch
-    y_all = ds.test_out_batch
-    if u_all.shape[0] < 40:
-        fail(f"RoboMove gives {u_all.shape[0]} test windows, need 40")
-
-    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
     bp = BucketedPredictor(model, params, SEQ_LEN, buckets=BUCKETS)
     bp(u_all[:1], y_all[:1])  # first request: cuBLAS / allocator set-up
     sync()
-
-    def check(out, n, where):
-        for name, dim in (("pred_mean", 2), ("pred_var", 2), ("internal_mean", 4),
-                          ("internal_var", 4), ("sde", 2)):
-            a = getattr(out, name)
-            if a.shape != (n, SEQ_LEN, dim):
-                fail(f"{where}: {name} has shape {a.shape}, want {(n, SEQ_LEN, dim)}")
-            if not np.isfinite(a).all():
-                fail(f"{where}: {name} is not finite")
-        if not (out.pred_var > 0).all() or not np.isfinite(out.mse):
-            fail(f"{where}: non-positive pred_var or non-finite mse")
-
-    # ---- the main path: counts from 0 just before, read just after ----
     fp.fused_predict.launches = 0
     fp.fused_predict_residuals.launches = 0
     n_req, n_threads = 40, 4
@@ -311,59 +333,71 @@ def phase_serving():
         for th in threads:
             th.join(timeout=900)
         if any(th.is_alive() for th in threads):
-            fail("MicroBatcher clients did not finish")
+            fail(f"{where}: MicroBatcher clients did not finish")
         stats = mb.stats()
     chunked = bp(u_all[:40], y_all[:40])  # 40 rows: chunks of 32 and 8
     launches = fp.fused_predict.launches
     residual_launches = fp.fused_predict_residuals.launches
     if residual_launches != 0:
-        fail(f"serving launched gp_predict_residuals {residual_launches} times, want 0")
+        fail(f"{where}: serving launched gp_predict_residuals {residual_launches} times, want 0")
     for i, out in enumerate(results):
         if out is None:
-            fail(f"request {i} got no result")
-        check(out, 1, f"MicroBatcher request {i}")
-    check(chunked, 40, "chunked request")
+            fail(f"{where}: request {i} got no result")
+        check_output(out, 1, f"{where} MicroBatcher request {i}")
+    check_output(chunked, 40, f"{where} chunked request")
     dispatches = stats["batches"] + 2
-    if launches != STEPS_PER_CHUNK * dispatches:
-        fail(f"kernel launches {launches} != {STEPS_PER_CHUNK} x {dispatches} dispatches")
-    print(f"serving: {n_req} MicroBatcher requests from {n_threads} threads in "
+    if launches != steps_per_chunk * dispatches:
+        fail(f"{where}: kernel launches {launches} != {steps_per_chunk} x {dispatches} "
+             "dispatches")
+    print(f"serving {where}: {n_req} MicroBatcher requests from {n_threads} threads in "
           f"{stats['batches']} batches (max {stats['max_batch_seen']}), one 40-row "
-          f"request in 2 chunks; {launches} kernel launches = {STEPS_PER_CHUNK} x "
+          f"request in 2 chunks; {launches} kernel launches = {steps_per_chunk} x "
           f"{dispatches} dispatches; outputs finite", flush=True)
+    return launches
 
-    # ---- kernel path against the plain path, same batch and seed ----
-    u8, y8 = u_all[:8], y_all[:8]
+
+def predict_parity(make_model, params, u8, y8, where: str):
+    """The kernel path against ``gp_impl='solve_free'`` on one batch of 8
+    and one seed: float64 outputs elementwise (rtol 1e-8, atol 1e-10);
+    float32 mse and mean pred_var (rtol 1e-3), since hundreds of chained
+    steps amplify float32 rounding."""
+    import numpy as np
+
+    from cbfssm_tpu_torch.serving import CompiledPredictor
+
     outs = {}
     for dtype in ("float64", "float32"):
         for impl in ("pallas", "solve_free"):
-            m = CBFSSM(config(dtype, impl), device=DEVICE)
+            m = make_model(dtype, impl)
             out = CompiledPredictor(m, params.to(m.dtype), 8, SEQ_LEN, seed=123)(u8, y8)
             outs[(dtype, impl)] = out.map(lambda a: a.double().cpu().numpy())
+    k64, p64 = outs[("float64", "pallas")], outs[("float64", "solve_free")]
     for name in ("pred_mean", "pred_var", "internal_mean", "internal_var"):
-        a, b = getattr(outs[("float64", "pallas")], name), getattr(outs[("float64", "solve_free")], name)
+        a, b = getattr(k64, name), getattr(p64, name)
         if not np.allclose(a, b, rtol=1e-8, atol=1e-10):
-            fail(f"float64 {name}: kernel path vs solve_free differ by {np.abs(a - b).max():.3e}")
-    f64_err = max(
-        float(np.abs(getattr(outs[("float64", "pallas")], n) - getattr(outs[("float64", "solve_free")], n)).max())
-        for n in ("pred_mean", "pred_var")
-    )
-    stats32 = {}
-    for impl in ("pallas", "solve_free"):
-        o = outs[("float32", impl)]
-        stats32[impl] = (float(o.mse), float(o.pred_var.mean()))
+            fail(f"{where}: float64 {name}: kernel path vs solve_free differ by "
+                 f"{np.abs(a - b).max():.3e}")
+    f64_err = max(float(np.abs(getattr(k64, n) - getattr(p64, n)).max())
+                  for n in ("pred_mean", "pred_var"))
+    stats32 = {impl: (float(outs[("float32", impl)].mse),
+                      float(outs[("float32", impl)].pred_var.mean()))
+               for impl in ("pallas", "solve_free")}
     for i, name in enumerate(("mse", "mean pred_var")):
         a, b = stats32["pallas"][i], stats32["solve_free"][i]
         if abs(a - b) > 1e-3 * abs(b):
-            fail(f"float32 {name}: kernel path {a!r} vs solve_free {b!r}")
-    print(f"parity: float64 outputs max abs diff {f64_err:.3e} (rtol 1e-8); float32 "
+            fail(f"{where}: float32 {name}: kernel path {a!r} vs solve_free {b!r}")
+    print(f"parity {where}: float64 outputs max abs diff {f64_err:.3e} (rtol 1e-8); float32 "
           f"kernel (mse, mean pred_var) {stats32['pallas']} vs solve_free "
           f"{stats32['solve_free']} (rtol 1e-3)", flush=True)
 
-    # ---- request latency, float32, both paths ----
-    latency = {}
-    for impl in ("pallas", "solve_free"):
-        m = CBFSSM(config("float32", impl), device=DEVICE)
-        pred = BucketedPredictor(m, params, SEQ_LEN, buckets=BUCKETS)
+
+def request_latency(make_model, params, u_all, y_all, impls, card: str, where: str):
+    """Median host time of 5 ``BucketedPredictor`` requests at B = 1 and
+    B = 32, float32, after one warm-up request each."""
+    from cbfssm_tpu_torch.serving import BucketedPredictor
+
+    for impl in impls:
+        pred = BucketedPredictor(make_model("float32", impl), params, SEQ_LEN, buckets=BUCKETS)
         for b in (1, 32):
             pred(u_all[:b], y_all[:b])
             times = []
@@ -371,9 +405,35 @@ def phase_serving():
                 t0 = time.perf_counter()
                 pred(u_all[:b], y_all[:b])
                 times.append(1e3 * (time.perf_counter() - t0))
-            latency[(impl, b)] = sorted(times)[len(times) // 2]
-            print(f"latency gp_impl={impl} B={b}: median {latency[(impl, b)]:.2f} ms "
-                  f"over 5 requests ({', '.join(f'{t:.2f}' for t in times)})", flush=True)
+            med = sorted(times)[len(times) // 2]
+            print(f"latency {where} gp_impl={impl} B={b}: median {med:.2f} ms over 5 requests "
+                  f"({', '.join(f'{t:.2f}' for t in times)}); {card}", flush=True)
+
+
+def served_windows():
+    from cbfssm_tpu_torch.data import RoboMove
+
+    ds = RoboMove(SEQ_LEN, SEQ_STRIDE)
+    if ds.test_in_batch.shape[0] < 40:
+        fail(f"RoboMove gives {ds.test_in_batch.shape[0]} test windows, need 40")
+    return ds.test_in_batch, ds.test_out_batch
+
+
+def phase_serving(card: str):
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSM
+
+    u_all, y_all = served_windows()
+
+    def make_model(dtype, impl):
+        return CBFSSM(config(dtype, impl), device=DEVICE)
+
+    model = make_model("float32", "pallas")
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    launches = serve_main_path(model, params, u_all, y_all, STEPS_PER_CHUNK, "CBFSSM")
+    predict_parity(make_model, params, u_all[:8], y_all[:8], "CBFSSM")
+    request_latency(make_model, params, u_all, y_all, ("pallas", "solve_free"), card, "CBFSSM")
     return launches
 
 
@@ -433,116 +493,222 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
         print(f"  {ms:9.3f} ms  {count:6d} x  {name[:110]}", flush=True)
 
 
+def report_steps(label: str, run, card: str):
+    """The median step time (steps 2-16) and peak memory of a
+    ``timed_train`` run, then one profiled step."""
+    import statistics
+
+    tr, times, peak, args = run
+    step_ms = statistics.median(times[1:])
+    print(f"train step {label}: median of steps 2-{len(times)} {step_ms:.2f} ms "
+          f"(step 1 {times[0]:.2f} ms), peak allocated {peak / 2**30:.3f} GiB; {card}",
+          flush=True)
+    if DEVICE == "cuda":
+        profile_step(tr, args, label, step_ms, card)
+
+
 def loss_and_grads(model, params, u, y, noise):
     """(loss, [grad of each leaf]) of one batch."""
     import torch
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
-    loss, _ = model.loss(type(params).from_tensors(leaves), u, y, condition=True, noise=noise)
+    loss, _ = model.loss(params.with_tensors(leaves), u, y, condition=True, noise=noise)
     return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
 
-def phase_training(card: str):
-    """One full-width RoboMove epoch through Trainer (the main path),
-    then gradient parity and step times of both gp_impl values."""
-    import statistics
-    import tempfile
-
-    import numpy as np
-    import torch
-
+def robomove():
     from cbfssm_tpu_torch.data import RoboMove
-    from cbfssm_tpu_torch.models import CBFSSM
-    from cbfssm_tpu_torch.ops import fused_predict as fp
-    from cbfssm_tpu_torch.training import Trainer, checkpoint
 
     ds = RoboMove(SEQ_LEN, SEQ_STRIDE)
     n_train, n_test = ds.train_in_batch.shape[0], ds.test_in_batch.shape[0]
     if (n_train, n_test) != (TRAIN_WINDOWS, TEST_WINDOWS):
         fail(f"RoboMove gives {n_train}/{n_test} windows, want {TRAIN_WINDOWS}/{TEST_WINDOWS}")
-    steps, test_batches = -(-n_train // BATCH), -(-n_test // BATCH)
-    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
+    return ds
 
+
+def train_main_path(model, ds, steps_per_batch: int, where: str):
+    """A training main path: one ``Trainer.train`` epoch (16 Adam steps,
+    3 test batches). The launch counts go to 0 just before and are read
+    just after: each step must launch ``gp_predict_residuals``
+    ``steps_per_batch`` times and each test batch ``gp_predict`` as
+    often. Losses must be finite, and both checkpoints must restore.
+    Returns the ``timed_train`` run and the two counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.training import Trainer, checkpoint
+
+    steps, test_batches = -(-TRAIN_WINDOWS // BATCH), -(-TEST_WINDOWS // BATCH)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
-        # ---- the main path: counts from 0 just before, read just after ----
         fp.fused_predict.launches = 0
         fp.fused_predict_residuals.launches = 0
         t0 = time.perf_counter()
-        trainer, times, peak, last_args = timed_train(model, model_dir, ds)
+        run = timed_train(model, model_dir, ds)
         epoch_s = time.perf_counter() - t0
         residual_launches = fp.fused_predict_residuals.launches
         launches = fp.fused_predict.launches
+        trainer = run[0]
         if not (np.isfinite(trainer.train_all).all() and np.isfinite(trainer.test_all).all()):
-            fail(f"non-finite losses: train {trainer.train_all}, test {trainer.test_all}")
-        if residual_launches != steps * STEPS_PER_CHUNK:
-            fail(f"gp_predict_residuals launches {residual_launches} != {steps} steps x "
-                 f"{STEPS_PER_CHUNK}")
-        if launches != test_batches * STEPS_PER_CHUNK:
-            fail(f"gp_predict launches {launches} != {test_batches} test batches x "
-                 f"{STEPS_PER_CHUNK}")
+            fail(f"{where}: non-finite losses: train {trainer.train_all}, "
+                 f"test {trainer.test_all}")
+        if residual_launches != steps * steps_per_batch:
+            fail(f"{where}: gp_predict_residuals launches {residual_launches} != {steps} steps "
+                 f"x {steps_per_batch}")
+        if launches != test_batches * steps_per_batch:
+            fail(f"{where}: gp_predict launches {launches} != {test_batches} test batches x "
+                 f"{steps_per_batch}")
         for name in (checkpoint.BEST, checkpoint.LAST):
             if not checkpoint.exists(f"{model_dir}/{name}"):
-                fail(f"{name} was not written")
+                fail(f"{where}: {name} was not written")
         restored = Trainer(model, model_dir, seed=0).restore(checkpoint.LAST)
-        for a, b in zip(restored.tensors(), trainer.params.tensors()):
+        for a, b in zip(restored.tensors(), trainer.params.tensors(), strict=True):
             if not torch.equal(a.detach(), b.detach()):
-                fail("model.ckpt does not restore the trained params")
+                fail(f"{where}: model.ckpt does not restore the trained params")
         Trainer(model, model_dir, seed=0).restore(checkpoint.BEST)
-    print(f"training: 1 epoch of {steps} Adam steps + {test_batches} test batches in "
+    print(f"training {where}: 1 epoch of {steps} Adam steps + {test_batches} test batches in "
           f"{epoch_s:.2f} s; train loss {trainer.train_all[0]!r}, test loss "
           f"{trainer.test_all[0]!r}; gp_predict_residuals launches {residual_launches} = "
-          f"{steps} x {STEPS_PER_CHUNK}, gp_predict launches {launches} = {test_batches} x "
-          f"{STEPS_PER_CHUNK}; best.ckpt and model.ckpt restore", flush=True)
+          f"{steps} x {steps_per_batch}, gp_predict launches {launches} = {test_batches} x "
+          f"{steps_per_batch}; best.ckpt and model.ckpt restore", flush=True)
+    return run, launches, residual_launches
 
-    # ---- gradient parity of the two gp_impl paths, one fixed batch ----
-    params0 = trainer.params.detach()
+
+def gradient_parity(make_model, params0, ds, where: str):
+    """The loss and every gradient leaf of one fixed batch of 32 and one
+    draw of noise under 'pallas' and 'solve_free': float64 loss at rtol
+    1e-10, each leaf at rtol 1e-6 with atol 1e-8 times its largest entry;
+    float32 loss at rtol 1e-3 and global gradient norm at rtol 1e-2
+    (hundreds of chained steps amplify float32 rounding)."""
+    import torch
+
     u = torch.as_tensor(ds.train_in_batch[:BATCH], device=DEVICE)
     y = torch.as_tensor(ds.train_out_batch[:BATCH], device=DEVICE)
     res = {}
     for dtype in ("float64", "float32"):
         for impl in ("pallas", "solve_free"):
-            m = CBFSSM(config(dtype, impl), device=DEVICE)
+            m = make_model(dtype, impl)
             noise = m.draw_noise(torch.Generator(DEVICE).manual_seed(7), SEQ_LEN, BATCH)
             res[(dtype, impl)] = loss_and_grads(m, params0.to(m.dtype), u, y, noise)
     (l_p, g_p), (l_s, g_s) = res[("float64", "pallas")], res[("float64", "solve_free")]
     if abs(float(l_p) - float(l_s)) > 1e-10 * abs(float(l_s)):
-        fail(f"float64 loss: pallas {float(l_p)!r} vs solve_free {float(l_s)!r}")
+        fail(f"{where}: float64 loss: pallas {float(l_p)!r} vs solve_free {float(l_s)!r}")
     worst = 0.0
     for k, (a, b) in enumerate(zip(g_p, g_s)):
         scale = float(b.abs().max())
         err = (a - b).abs()
         if bool((err > 1e-6 * b.abs() + 1e-8 * scale).any()):
-            fail(f"float64 gradient of leaf {k}: max abs err {float(err.max()):.3e}, largest "
-                 f"entry {scale:.3e} (rtol 1e-6, atol 1e-8 x largest)")
+            fail(f"{where}: float64 gradient of leaf {k}: max abs err {float(err.max()):.3e}, "
+                 f"largest entry {scale:.3e} (rtol 1e-6, atol 1e-8 x largest)")
         worst = max(worst, float(err.max()) / max(scale, 1e-300))
     (l_p32, g_p32), (l_s32, g_s32) = res[("float32", "pallas")], res[("float32", "solve_free")]
     norm_p = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_p32)))
     norm_s = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_s32)))
     if abs(float(l_p32) - float(l_s32)) > 1e-3 * abs(float(l_s32)):
-        fail(f"float32 loss: pallas {float(l_p32)!r} vs solve_free {float(l_s32)!r}")
+        fail(f"{where}: float32 loss: pallas {float(l_p32)!r} vs solve_free {float(l_s32)!r}")
     if abs(norm_p - norm_s) > 1e-2 * norm_s:
-        fail(f"float32 gradient norm: pallas {norm_p!r} vs solve_free {norm_s!r}")
-    print(f"training parity: float64 loss {float(l_p)!r} vs {float(l_s)!r}, 12 gradient leaves "
-          f"within rtol 1e-6 (largest error / largest entry {worst:.3e}); float32 loss "
-          f"{float(l_p32)!r} vs {float(l_s32)!r} (rtol 1e-3), gradient norm {norm_p!r} vs "
-          f"{norm_s!r} (rtol 1e-2)", flush=True)
+        fail(f"{where}: float32 gradient norm: pallas {norm_p!r} vs solve_free {norm_s!r}")
+    print(f"training parity {where}: float64 loss {float(l_p)!r} vs {float(l_s)!r}, "
+          f"{len(g_p)} gradient leaves within rtol 1e-6 (largest error / largest entry "
+          f"{worst:.3e}); float32 loss {float(l_p32)!r} vs {float(l_s32)!r} (rtol 1e-3), "
+          f"gradient norm {norm_p!r} vs {norm_s!r} (rtol 1e-2)", flush=True)
 
-    # ---- step time and peak memory, float32, B = 32: the main-path
-    # epoch above and one more of gp_impl='solve_free' ----
-    runs = {"pallas": (trainer, times, peak, last_args)}
+
+def phase_training(card: str):
+    """One full-width RoboMove epoch of CBFSSM through Trainer (the main
+    path), then gradient parity and step times of both gp_impl values."""
+    import tempfile
+
+    from cbfssm_tpu_torch.models import CBFSSM
+
+    def make_model(dtype, impl):
+        return CBFSSM(config(dtype, impl), device=DEVICE)
+
+    ds = robomove()
+    run, launches, residual_launches = train_main_path(
+        make_model("float32", "pallas"), ds, STEPS_PER_CHUNK, "CBFSSM")
+    gradient_parity(make_model, run[0].params.detach(), ds, "CBFSSM")
+    # step time and peak memory, float32, B = 32: the main-path epoch
+    # above and one more of gp_impl='solve_free'
+    report_steps(f"CBFSSM gp_impl=pallas B={BATCH} float32", run, card)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
-        runs["solve_free"] = timed_train(CBFSSM(config("float32", "solve_free"), device=DEVICE),
-                                         model_dir, ds)
-    for impl, (tr, times, peak, args) in runs.items():
-        step_ms = statistics.median(times[1:])
-        label = f"gp_impl={impl} B={BATCH} float32"
-        print(f"train step {label}: median of steps 2-{len(times)} {step_ms:.2f} ms "
-              f"(step 1 {times[0]:.2f} ms), peak allocated {peak / 2**30:.3f} GiB; {card}",
-              flush=True)
-        if DEVICE == "cuda":
-            profile_step(tr, args, label, step_ms, card)
+        plain = timed_train(make_model("float32", "solve_free"), model_dir, ds)
+    report_steps(f"CBFSSM gp_impl=solve_free B={BATCH} float32", plain, card)
     return launches, residual_launches
+
+
+def recognition_parity(params):
+    """The float32 recognition nets on the card against the same nets in
+    float64 on the CPU (rtol 1e-5, atol 1e-6 times the largest entry;
+    TF32 would miss it): the GRU with the trained CBFSSMHALF leaves over
+    the first recog_len = 50 steps of 32 RoboMove windows, and a PR-SSM
+    conv net (recog_len 16) with leaves drawn from a seed."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.models import recognition
+
+    u_all, y_all = served_windows()
+    uy = np.concatenate((u_all[:BATCH], y_all[:BATCH]), axis=-1)
+    d_in, dim_x = uy.shape[-1], 4
+    conv = recognition.make_recognition("conv", d_in, dim_x, 16, torch.float64)
+    conv_leaves = recognition.init_leaves(conv, torch.Generator().manual_seed(0),
+                                          torch.float64, "cpu")
+    gru_leaves = {k: v.detach().double().cpu() for k, v in params.recog.items()}
+    for kind, leaves, steps in (("rnn", gru_leaves, 50), ("conv", conv_leaves, 16)):
+        x64 = torch.as_tensor(uy[:, :steps], dtype=torch.float64)
+        want = recognition.apply(recognition.make_recognition(kind, d_in, dim_x, steps,
+                                                              torch.float64), leaves, x64)
+        net32 = recognition.make_recognition(kind, d_in, dim_x, steps, torch.float32)
+        got = recognition.apply(net32, {k: v.float().to(DEVICE) for k, v in leaves.items()},
+                                x64.float().to(DEVICE)).double().cpu()
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        if bool((err > 1e-5 * want.abs() + 1e-6 * scale).any()):
+            fail(f"recognition {kind}: float32 on {DEVICE} vs float64 on the CPU: max abs err "
+                 f"{float(err.max()):.3e}, largest entry {scale:.3e} (rtol 1e-5)")
+        print(f"recognition {kind}: float32 on {DEVICE} vs float64 on the CPU, max abs err "
+              f"{float(err.max()):.3e} of largest entry {scale:.3e} (rtol 1e-5)", flush=True)
+
+
+def phase_other_models(card: str):
+    """CBFSSMHALF and PRSSM ('rnn') at the phase-0 RoboMove width (dim_y
+    2, so var_y of length 2): serving, one training epoch, parity of the
+    two gp_impl paths, step time, latency; then the recognition nets in
+    float32 on the card against float64 on the CPU. Returns the launch
+    counts by path."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSMHALF, PRSSM
+
+    ds = robomove()
+    u_all, y_all = served_windows()
+    by_path, half_params = {}, None
+    for name, cls in (("cbfssmhalf", CBFSSMHALF), ("prssm", PRSSM)):
+        def make_model(dtype, impl, cls=cls):
+            return cls(config(dtype, impl, var_y=np.asarray([1.0**2] * 2), recog_model="rnn"),
+                       device=DEVICE)
+
+        where = cls.__name__
+        model = make_model("float32", "pallas")
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        serve = serve_main_path(model, params, u_all, y_all, FORWARD_STEPS, where)
+        run, launches, residual_launches = train_main_path(model, ds, FORWARD_STEPS, where)
+        trained = run[0].params.detach()
+        gradient_parity(make_model, trained, ds, where)
+        predict_parity(make_model, trained, u_all[:8], y_all[:8], where)
+        report_steps(f"{where} gp_impl=pallas B={BATCH} float32", run, card)
+        request_latency(make_model, trained, u_all, y_all, ("pallas",), card, where)
+        by_path[f"serving_{name}"] = (serve, 0)
+        by_path[f"training_{name}"] = (launches, residual_launches)
+        if cls is CBFSSMHALF:
+            half_params = trained
+    recognition_parity(half_params)
+    return by_path
 
 
 def main() -> None:
@@ -551,23 +717,35 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    card = phase_device()
-    phase_build()
-    max_err, times = phase_kernel()
-    res_err, res_times = phase_residual_kernel()
-    serve_launches = phase_serving()
-    train_launches, residual_launches = phase_training(card)
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s", flush=True)
+        return out
+
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    max_err, times = timed("3 kernel", phase_kernel)
+    res_err, res_times = timed("3b residual kernel", phase_residual_kernel)
+    serve_launches = timed("4 serving", phase_serving, card)
+    train_launches, residual_launches = timed("5 training", phase_training, card)
+    other = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
+    print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
+    # launches per main path: (gp_predict, gp_predict_residuals)
+    paths = {"serving": (serve_launches, 0), "training": (train_launches, residual_launches),
+             **other}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []
-    for name, line, err, t, launches, by_path, residuals in (
-        ("gp_predict", 79, max_err, times, serve_launches + train_launches,
-         {"serving": serve_launches, "training": train_launches}, False),
-        ("gp_predict_residuals", 85, res_err, res_times, residual_launches,
-         {"serving": 0, "training": residual_launches}, True),
-    ):
+    for k, (name, line, err, t, residuals) in enumerate((
+        ("gp_predict", 79, max_err, times, False),
+        ("gp_predict_residuals", 85, res_err, res_times, True),
+    )):
+        by_path = {path: counts[k] for path, counts in paths.items()}
         bound_ms, bound_by = bound(n, m, di, d, "float32", residuals)
         bound2_ms, bound2_by = bound(n2, m2, di2, d2, "float32", residuals)
         dev_ms, k_ms, p_ms = t[(torch.float32, n)]
@@ -576,7 +754,7 @@ def main() -> None:
             "route": "cuda",
             "source": "cbfssm_tpu_torch/csrc/gp_predict.cu",
             "replaces": f"cbfssm_tpu/ops/pallas/gp_predict.py:{line}",
-            "launches": launches,
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": err,
             "ms": dev_ms,

@@ -216,3 +216,102 @@ def test_cuda_kernel_on_d2_clamp_inputs(cuda_device, dtype):
         want = fp.fused_predict_plain(*args)
         for g, ref in zip((mean, var), want):
             torch.testing.assert_close(g, ref, rtol=1e-10, atol=1e-8)
+
+
+def empty_rows_calls(device, dtype):
+    """Both wrappers and FusedPredict's backward at N = 0 (M = 11,
+    DI = 5, D = 3): outputs, launch counts before and after, gradients."""
+    args = list(plain_inputs(np.random.default_rng(3), 0, 11, 5, 3, dtype, device))
+    before = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+    value = fp._fused_predict_value(*args)
+    residuals = fp.fused_predict_residuals(*args)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    mean, var = fp.fused_predict(*leaves)
+    grads = torch.autograd.grad((mean.sum() + var.sum()), leaves)
+    after = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+    return args, value, residuals, grads, before, after
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_empty_rows_give_empty_outputs_and_zero_grads(device):
+    """N = 0: empty [0, D] / [0, M] outputs, no launch counted, and the
+    backward returns zeros of each input's shape."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
+    args, value, residuals, grads, before, after = empty_rows_calls(device, torch.float64)
+    assert [tuple(t.shape) for t in value] == [(0, 3), (0, 3)]
+    assert [tuple(t.shape) for t in residuals] == [(0, 3), (0, 3), (0, 11), (0, 11)]
+    assert after == before
+    for g, a in zip(grads, args):
+        assert g.shape == a.shape and g.device == a.device
+        assert torch.equal(g, torch.zeros_like(a))
+
+
+def nan_filled_allocator(device, dtype, shapes, copies=8):
+    """Leave the caching allocator's free blocks of these shapes full of
+    NaN, so that an output buffer the kernel fails to write shows up."""
+    junk = [torch.full(s, float("nan"), dtype=dtype, device=device)
+            for s in shapes for _ in range(copies)]
+    torch.cuda.synchronize()
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,di", [(1600, 100, 6), (37, 11, 5)])
+def test_cuda_no_output_column(cuda_device, dtype, n, m, di):
+    """D = 0 (a CBFSSM with dim_x = dim_y has a recognition GP of no
+    output column): the residual kernel still writes kmn and w, and the
+    gradients through FusedPredict are finite and equal autograd of the
+    plain version."""
+    rtol, atol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+    args = plain_inputs(np.random.default_rng(n), n, m, di, 0, dtype, cuda_device)
+    nan_filled_allocator(cuda_device, dtype, [(n, m)])
+    before = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+    mean, var = fp._fused_predict_value(*args)
+    got = fp.fused_predict_residuals(*args)
+    torch.cuda.synchronize()
+    assert (fp.fused_predict.launches, fp.fused_predict_residuals.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tuple(mean.shape) == tuple(var.shape) == (n, 0)
+    _, _, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+    assert [tuple(t.shape) for t in got] == [(n, 0), (n, 0), (n, m), (n, m)]
+    torch.testing.assert_close(got[2], kmn, rtol=rtol, atol=atol)
+    torch.testing.assert_close(got[3], w, rtol=rtol, atol=atol)
+    nan_filled_allocator(cuda_device, dtype, [(n, m)])
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(fp.fused_predict_plain(*leaves)[1].sum(), leaves[1:],
+                               allow_unused=True, materialize_grads=True)
+    got_g = torch.autograd.grad(fp.FusedPredict.apply(*leaves)[1].sum(), leaves[1:])
+    for g, ref in zip(got_g, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_inducing_point_cap(cuda_device, dtype):
+    """All of kinv sits in shared memory, so M is capped: at the cap
+    both kernels run and match the plain version; one past it both
+    wrappers raise before the launch, naming M, DI, D, the dtype and
+    the cap."""
+    rtol, atol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+    di, d = 6, 4
+    cap = fp.max_inducing_points(dtype, di, d, cuda_device)
+    assert 100 < cap < 1000 and fp.max_inducing_points(dtype, di, 2, cuda_device) >= cap
+    args = plain_inputs(np.random.default_rng(cap), 37, cap, di, d, dtype, cuda_device)
+    got = fp.fused_predict_residuals(*args)
+    torch.cuda.synchronize()
+    mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+    for g, ref in zip(got, (mean, var, kmn, w)):
+        torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)
+    for g, ref in zip(fp._fused_predict_value(*args), (mean, var)):
+        torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)
+    over = plain_inputs(np.random.default_rng(0), 37, cap + 1, di, d, dtype, cuda_device)
+    before = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+    match = (rf"M={cap + 1} .*DI={di}, D={d} in {dtype}.*largest M that fits is {cap}")
+    with pytest.raises(ValueError, match=match):
+        fp._fused_predict_value(*over)
+    with pytest.raises(ValueError, match=match):
+        fp.fused_predict_residuals(*over)
+    assert (fp.fused_predict.launches, fp.fused_predict_residuals.launches) == before

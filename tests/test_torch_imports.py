@@ -17,6 +17,8 @@ JAX_FREE = """
 import sys
 import cbfssm_tpu_torch, cbfssm_tpu_torch.config, cbfssm_tpu_torch.convert
 import cbfssm_tpu_torch.serving, cbfssm_tpu_torch.models, cbfssm_tpu_torch.data
+import cbfssm_tpu_torch.models.recognition, cbfssm_tpu_torch.models.cbfssmhalf
+import cbfssm_tpu_torch.models.prssm
 import cbfssm_tpu_torch.ops._build, cbfssm_tpu_torch.ops.fused_predict
 import cbfssm_tpu_torch.training, cbfssm_tpu_torch.training.checkpoint
 import cbfssm_tpu_torch.training.trainer, cbfssm_tpu_torch.utils.profiling

@@ -30,7 +30,8 @@ from cbfssm_tpu_torch.models import CBFSSM
 from cbfssm_tpu_torch.training import Trainer, checkpoint
 from cbfssm_tpu_torch.training import trainer as port_trainer
 from cbfssm_tpu_torch.utils.profiling import StepTimer
-from tests.test_torch_cbfssm import batch, jax_noise, pair, params_numpy
+from tests.test_cbfssm_model import make_model
+from tests.test_torch_cbfssm import batch, jax_noise, pair, params_numpy, port_config
 from tests.test_trainer import SmokeDS, smoke_config
 
 GRAD_RTOL = 1e-7
@@ -91,6 +92,29 @@ def test_padded_weight_grads_match_jax(gp_impl):
     y2[1] -= 5.0
     _, got2 = port_grads(pm, tparams, u2, y2, True, w, noise)
     assert_trees_close(got2, got, rtol=1e-10)
+
+
+@pytest.mark.parametrize("gp_impl", ["solve_free", "pallas"])
+def test_dim_h_zero_loss_and_grads_match_jax(gp_impl):
+    """dim_x = dim_y (TinyDS dim_y 1): the recognition GP has no output
+    column, so its predicts have D = 0 (on the card the residual kernel
+    then runs with no output column). The tests/test_serving.py:43 /
+    tests/test_adjoint.py:73 pipeline for the port: loss and every
+    gradient leaf against JAX."""
+    jm = make_model(dim_x=1)
+    jm.config.gp_impl = gp_impl
+    pm = CBFSSM(port_config(jm, gp_impl=gp_impl), device="cpu")
+    assert pm.dim_h == 0
+    u, y = batch(seed=4)
+    key = jax.random.PRNGKey(8)
+    params = jm.init(jax.random.PRNGKey(2))
+    want_loss, want = jax.jit(jax.value_and_grad(lambda p: jm.loss(p, u, y, key, True)[0]))(
+        params)
+    loss, got = port_grads(pm, cbfssm_params_from_numpy(params_numpy(params), device="cpu"),
+                           u, y, True, None, jax_noise(pm, key, 8, 2))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=GRAD_RTOL)
+    assert got["gp_b"]["mean"].shape == (5, 0)
+    assert_trees_close(got, params_numpy(want), rtol=GRAD_RTOL, atol=1e-12)
 
 
 def jax_key_noise(pm, seed):
