@@ -5,7 +5,9 @@ The JAX package's ``CBFSSMParams`` has the leaves ``gp_f`` / ``gp_b``
 {``z``, ``mean``, ``var_unc``, ``kern_var_unc``, ``kern_len_unc``},
 ``var_x_unc`` and ``var_y_unc``; ``CBFSSMHALFParams`` and
 ``PRSSMParams`` have ``gp_f``, ``var_x_unc``, ``var_y_unc`` and
-``recog``, the flax recognition tree (``{}`` for 'output'). A caller
+``recog``, the flax recognition tree (``{}`` for 'output');
+``VoliroParams`` has ``gp_f``, ``gp_b``, ``var_x_unc``, ``var_y_unc`` and
+``var_z_unc``. A caller
 flattens that pytree to a nested dict of numpy arrays (``{"gp_f": {"z":
 ..., ...}, ...}``) and passes it here; nothing of JAX is imported.
 
@@ -31,6 +33,7 @@ import torch
 from cbfssm_tpu_torch.models.cbfssm import CBFSSMParams
 from cbfssm_tpu_torch.models.cbfssmhalf import CBFSSMHALFParams
 from cbfssm_tpu_torch.models.prssm import PRSSMParams
+from cbfssm_tpu_torch.models.voliro import VoliroParams
 from cbfssm_tpu_torch.ops.gp import SparseGPParams
 
 GP_LEAVES = ("z", "mean", "var_unc", "kern_var_unc", "kern_len_unc")
@@ -177,3 +180,33 @@ def cbfssmhalf_params_to_numpy(params) -> dict:
 
 
 prssm_params_to_numpy = cbfssmhalf_params_to_numpy
+
+
+VOLIRO_NOISE_LEAVES = ("var_x_unc", "var_y_unc", "var_z_unc")
+
+
+def voliro_params_from_numpy(tree: dict, device="cuda", dtype=torch.float64) -> VoliroParams:
+    """``VoliroParams`` on ``device`` in ``dtype`` from the JAX
+    ``VoliroParams`` as a nested dict of numpy arrays. A missing leaf
+    raises a ``KeyError`` that names it."""
+    gps = ("gp_f", "gp_b")
+    missing = [k for k in (*gps, *VOLIRO_NOISE_LEAVES) if k not in tree] + [
+        f"{g}/{k}" for g in gps if g in tree for k in GP_LEAVES if k not in tree[g]]
+    if missing:
+        raise KeyError(f"Voliro parameters lack leaves {missing}")
+    tensor = _tensor_fn(device, dtype)
+    return VoliroParams(*(_gp_params(tree[g], tensor) for g in gps),
+                        *(tensor(tree[k]) for k in VOLIRO_NOISE_LEAVES))
+
+
+def voliro_params_to_numpy(params: VoliroParams) -> dict:
+    """The inverse of :func:`voliro_params_from_numpy`."""
+
+    def array(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "gp_f": {k: array(getattr(params.gp_f, k)) for k in GP_LEAVES},
+        "gp_b": {k: array(getattr(params.gp_b, k)) for k in GP_LEAVES},
+        **{k: array(getattr(params, k)) for k in VOLIRO_NOISE_LEAVES},
+    }

@@ -209,8 +209,10 @@ class BaseSSM:
           u_block / y_block: ``[B, K, du]`` / ``[B, K, dy]``, batch-major.
           generator / eps: the per-step particle draws, either drawn from
             ``generator`` as ``[K, B, S, 1]`` or given ready-made as
-            ``eps`` of that shape. (The JAX package draws step i from
-            ``fold_in(base_key, t0 + i)``; the tests pass those draws.)
+            ``eps`` of that shape (``[K, n, B, S, 1]`` for a model whose
+            step takes ``FILTER_DRAWS = n`` draws). (The JAX package draws
+            step i from ``fold_in(base_key, t0 + i)``; the tests pass
+            those draws.)
           active: optional bool ``[K]`` (shared across the batch) or
             ``[K, B]``; inactive steps HOLD the ensemble (their mean/var
             outputs are placeholders from the discarded transition).
@@ -233,7 +235,9 @@ class BaseSSM:
             raise ValueError(
                 f"active must be [{k_len}] or [{k_len}, {b}], got {tuple(active.shape)}"
             )
-        eps = self._eps_or_draw(eps, generator, (k_len, b, s))
+        draws = getattr(self, "FILTER_DRAWS", 1)
+        eps = self._eps_or_draw(eps, generator, (k_len, b, s) if draws == 1
+                                else (k_len, draws, b, s))
         means, vars_ = [], []
         for i in range(k_len):
             x_next, (mean, var) = self.filter_step(params, ops, x, u_tm[i], y_tm[i], eps=eps[i])

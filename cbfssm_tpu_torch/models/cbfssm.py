@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from cbfssm_tpu_torch.models import adjoint, segmentation
-from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM
+from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput
 from cbfssm_tpu_torch.ops import gp, transforms
 
 
@@ -333,7 +333,7 @@ class CBFSSM(BaseSSM):
         return -elbo, aux
 
     def predict(self, params: CBFSSMParams, u, y, generator=None, condition: bool = False,
-                noise: RolloutNoise | None = None):
+                noise: RolloutNoise | None = None) -> PredictOutput:
         """Prediction statistics; with ``condition=False`` the rollout is
         free-running after the recognition prefix."""
         x_final, _, _, (_, var_y, _, _, y_tm) = self._rollout(

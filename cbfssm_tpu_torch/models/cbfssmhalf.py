@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from cbfssm_tpu_torch.config import as_config
 from cbfssm_tpu_torch.models import segmentation
-from cbfssm_tpu_torch.models.base import RecognitionParams, RecognitionSSM
+from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM
 from cbfssm_tpu_torch.ops import gp, transforms
 from cbfssm_tpu_torch.ops.distributions import kl_diag_gaussians
 
@@ -134,7 +134,7 @@ class CBFSSMHALF(RecognitionSSM):
         return -elbo, aux
 
     def predict(self, params: CBFSSMHALFParams, u, y, generator=None, condition: bool = False,
-                noise=None):
+                noise=None) -> PredictOutput:
         """Prediction statistics; with ``condition=False`` the rollout is
         free-running after the recognition prefix."""
         x_final, _, (var_y, _, y_tm) = self._rollout(params, u, y, generator, condition, noise)

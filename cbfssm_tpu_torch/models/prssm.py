@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from cbfssm_tpu_torch.config import as_config
-from cbfssm_tpu_torch.models.base import RecognitionParams, RecognitionSSM
+from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM
 from cbfssm_tpu_torch.ops import gp, transforms
 
 
@@ -88,7 +88,7 @@ class PRSSM(RecognitionSSM):
         return -elbo, aux
 
     def predict(self, params: PRSSMParams, u, y, generator=None, condition: bool = False,
-                noise=None):
+                noise=None) -> PredictOutput:
         """Free-running prediction statistics (``condition`` has no effect)."""
         del condition
         x_final, (var_y, _, y_tm) = self._rollout(params, u, y, generator, noise)

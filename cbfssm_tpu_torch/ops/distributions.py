@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from cbfssm_tpu_torch.ops import linalg
@@ -40,3 +41,19 @@ def kl_diag_vs_tril(mean_q, var_q, chol_p, kinv_p_diag, kinv_mean):
     logdet_q = torch.sum(torch.log(var_q), dim=0)
     kl = 0.5 * (trace_term + maha - m + logdet_k - logdet_q)
     return torch.sum(kl)
+
+
+def beta_logpdf(x, alpha, beta):
+    """log Beta(x | alpha, beta), elementwise: the Beta priors on
+    Voliro's GP noise and lengthscales. When alpha and beta are Python
+    or numpy scalars (static config values) the log-normalizer comes
+    from ``math.lgamma`` in double precision, as in the JAX package;
+    otherwise (tensors) from ``torch.lgamma``."""
+    if isinstance(alpha, (int, float, np.number)) and isinstance(beta, (int, float, np.number)):
+        a, b = float(alpha), float(beta)
+        log_norm = math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
+    else:
+        alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+        beta = torch.as_tensor(beta, dtype=x.dtype, device=x.device)
+        log_norm = torch.lgamma(alpha) + torch.lgamma(beta) - torch.lgamma(alpha + beta)
+    return (alpha - 1.0) * torch.log(x) + (beta - 1.0) * torch.log1p(-x) - log_norm

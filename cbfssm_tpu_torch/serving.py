@@ -18,16 +18,35 @@ from __future__ import annotations
 import queue as _queue
 import threading
 import time
+import typing
 from concurrent.futures import Future
 
 import numpy as np
 import torch
+
+from cbfssm_tpu_torch.models.base import PredictOutput
 
 
 def fold_seed(seed: int, index: int) -> int:
     """A child seed for stream ``index`` of ``seed``: distinct, well-mixed
     64-bit seeds for distinct (seed, index) pairs."""
     return int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0])
+
+
+def check_predict_output(model) -> None:
+    """Raise a ``TypeError`` unless ``model.predict`` declares that it
+    returns a ``PredictOutput``, the type the batch predictors pad,
+    slice and chunk (Voliro's predict returns a dict). Read from the
+    return annotation, before any dispatch."""
+    declared = typing.get_type_hints(type(model).predict).get("return")
+    if not (isinstance(declared, type) and issubclass(declared, PredictOutput)):
+        name = getattr(declared, "__name__", repr(declared))
+        raise TypeError(
+            f"{type(model).__name__}.predict returns {name}, not a PredictOutput; the "
+            "batch predictors (CompiledPredictor/BucketedPredictor/MicroBatcher) "
+            "support models whose predict returns a PredictOutput "
+            "(CBFSSM/CBFSSMHALF/PRSSM)"
+        )
 
 
 class CompiledPredictor:
@@ -39,6 +58,7 @@ class CompiledPredictor:
 
     def __init__(self, model, params, batch: int, seq_len: int,
                  condition: bool = False, seed: int = 0):
+        check_predict_output(model)
         self.model = model
         self.params = params
         self.batch = batch

@@ -26,6 +26,17 @@ KERNEL_SHAPES = [(12800, 100, 6, 2), (1600, 100, 6, 4), (37, 11, 5, 3),
                  (1, 1, 1, 1), (3, 7, 2, 1), (5, 13, 3, 2), (53, 101, 8, 4),
                  (1601, 100, 6, 4), (12689, 101, 7, 3), (9, 13, 4, 5)]
 
+# Shapes (N, M, DI, D) of the Voliro and Sarcos training paths at the
+# widths of run_voliro.py (B 16, S 20, T 64, M 20) and run_sarcos.py
+# (B 5, S 20, 9 recognition blocks, M 100). D = 6, 7 and 14 take two to
+# four passes of the kernel's per-row reduction (4 columns a pass).
+MODEL_SHAPES = {
+    "voliro force": (1024, 20, 12, 3),
+    "voliro recognition": (320, 20, 19, 6),
+    "sarcos recognition": (1800, 100, 21, 7),
+    "sarcos forward": (100, 100, 21, 14),
+}
+
 
 def kernel_inputs(rng, n, m, di, d, dtype, device):
     """Random well-conditioned predict operands (the construction of the

@@ -10,7 +10,8 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
 2. build: ``nvcc`` builds ``cbfssm_tpu_torch/csrc/gp_predict.cu`` (both
    kernels, ``gp_predict`` and ``gp_predict_residuals``), and the
    library reports the largest M (inducing points) the kernels take at
-   DI = 6, D = 4 and D = 2 in both dtypes;
+   DI = 6, D = 4 and D = 2 in both dtypes, and at the (DI, D) of the
+   Voliro and Sarcos GPs (12, 3), (19, 6), (21, 7), (21, 14);
 3. kernel: ``gp_predict`` against its plain torch version at the two
    RoboMove shapes and a ragged one, in float32 (rtol 2e-5, atol 1e-5)
    and float64 (rtol 1e-10, atol 1e-12); times: the kernel's device time
@@ -64,11 +65,35 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    the float32 GRU (the trained CBFSSMHALF leaves) and a PR-SSM conv
    net (recog_len 16) on the card against the same nets in float64 on
    the CPU: rtol 1e-5, atol 1e-6 times the largest entry, which TF32
-   would miss.
+   would miss;
+7. Voliro and Sarcos, on synthetic data files written from seed 0
+   (``cbfssm_tpu_torch.data.synthetic``: the flight logs, 4,000 and
+   20,500 samples, and ``sarcos_inv.mat``, 66 x 674 rows of 28 columns).
+   First both kernels against their plain versions at the four new
+   shapes (``kernel_timing.MODEL_SHAPES``: Voliro force N 1,024 DI 12
+   D 3 and recognition N 320 DI 19 D 6 at M 20; Sarcos recognition
+   N 1,800 DI 21 D 7 and forward N 100 DI 21 D 14 at M 100), in both
+   dtypes at phase 3's tolerances, each timed by graph replay beside its
+   bound. Then ``run_voliro.main(epochs=1, config_overrides={"gp_impl":
+   "pallas", "dtype": "float32"})`` at the full width of run_voliro.py
+   (B 16, M 20, S 20, seq 64 / stride 50): 65 residual launches per
+   Adam step, 65 value launches per test batch and 1 + T per
+   ``OutputsVoliro`` predict over a log of T steps, and the arrays of
+   ``voliro_forces.mat`` (finite, [T, 6], positive variances) and, where
+   matplotlib is installed, ``voliro_forces.pdf`` (without it the two
+   plots are skipped); and a ``Trainer`` epoch of CBFSSM at the full
+   width of run_sarcos.py (dim_x 14, M 100, S 20, B 5, seq 250 / stride
+   10, recog_len 16), float32, cut to 16 Adam steps: 281 launches per
+   step and per test batch. For both, the two gp_impl paths on one
+   batch with fixed noise (float64 loss rtol 1e-10, every gradient leaf
+   rtol 1e-6, predict outputs rtol 1e-8; float32 against float64 on the
+   loss terms at rtol 1e-3), the step time, peak memory and one
+   profiled step.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
-four: each sets the launch counts to 0 just before it and reads them
-just after, and the kernels line lists them by path
+four and phase 7's two (``voliro``: training, test loss and outputs;
+``training_sarcos``): each sets the launch counts to 0 just before it
+and reads them just after, and the kernels line lists them by path
 (``launches_by_path``; ``launches`` is their sum).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -76,12 +101,14 @@ is the card, and the line before that lists the kernels with their
 checks and times: ``ms`` is the graph-replayed device time at the
 recognition shape (float32, N = 12,800), ``ms_n1600`` the same at the
 forward shape (N = 1,600), each beside its bound (``bound_ms``,
-``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure and
-``device_ms_f64`` has the same device times in float64.
+``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure,
+``device_ms_f64`` has the same device times in float64, and
+``model_shapes`` the figures of phase 7's four shapes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -106,6 +133,10 @@ SHAPES = {
     "ragged N=37 M=11 DI=5 D=3": (37, 11, 5, 3),
 }
 TIMED_N = (12800, 1600)  # the RoboMove shapes, timed by graph replay
+# (DI, D) of the Voliro force and recognition GPs and the Sarcos
+# recognition and forward GPs
+MODEL_WIDTHS = ((12, 3), (19, 6), (21, 7), (21, 14))
+SARCOS_STEPS = 16  # Adam steps of phase 7's Sarcos epoch (a full one is 120)
 
 
 def fail(msg: str) -> None:
@@ -193,6 +224,9 @@ def phase_build():
     caps = {f"{dt} D={d}": fp.max_inducing_points(getattr(torch, dt), 6, d)
             for dt in ("float32", "float64") for d in (4, 2)}
     print(f"inducing-point cap at DI=6 (largest M the kernels take): {caps}", flush=True)
+    caps = {f"{dt} DI={di} D={d}": fp.max_inducing_points(getattr(torch, dt), di, d)
+            for dt in ("float32", "float64") for di, d in MODEL_WIDTHS}
+    print(f"inducing-point cap at the Voliro and Sarcos widths: {caps}", flush=True)
 
 
 def phase_kernel():
@@ -356,7 +390,7 @@ def serve_main_path(model, params, u_all, y_all, steps_per_chunk: int, where: st
     return launches
 
 
-def predict_parity(make_model, params, u8, y8, where: str):
+def predict_parity(make_model, params, u8, y8, where: str, seq_len: int = SEQ_LEN):
     """The kernel path against ``gp_impl='solve_free'`` on one batch of 8
     and one seed: float64 outputs elementwise (rtol 1e-8, atol 1e-10);
     float32 mse and mean pred_var (rtol 1e-3), since hundreds of chained
@@ -369,7 +403,7 @@ def predict_parity(make_model, params, u8, y8, where: str):
     for dtype in ("float64", "float32"):
         for impl in ("pallas", "solve_free"):
             m = make_model(dtype, impl)
-            out = CompiledPredictor(m, params.to(m.dtype), 8, SEQ_LEN, seed=123)(u8, y8)
+            out = CompiledPredictor(m, params.to(m.dtype), 8, seq_len, seed=123)(u8, y8)
             outs[(dtype, impl)] = out.map(lambda a: a.double().cpu().numpy())
     k64, p64 = outs[("float64", "pallas")], outs[("float64", "solve_free")]
     for name in ("pred_mean", "pred_var", "internal_mean", "internal_var"):
@@ -508,12 +542,13 @@ def report_steps(label: str, run, card: str):
 
 
 def loss_and_grads(model, params, u, y, noise):
-    """(loss, [grad of each leaf]) of one batch."""
+    """(loss, [grad of each leaf], aux) of one batch."""
     import torch
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
-    loss, _ = model.loss(params.with_tensors(leaves), u, y, condition=True, noise=noise)
-    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    loss, aux = model.loss(params.with_tensors(leaves), u, y, condition=True, noise=noise)
+    return (loss.detach(), list(torch.autograd.grad(loss, leaves)),
+            {k: float(v.detach()) for k, v in aux.items()})
 
 
 def robomove():
@@ -527,8 +562,8 @@ def robomove():
 
 
 def train_main_path(model, ds, steps_per_batch: int, where: str):
-    """A training main path: one ``Trainer.train`` epoch (16 Adam steps,
-    3 test batches). The launch counts go to 0 just before and are read
+    """A training main path: one ``Trainer.train`` epoch (RoboMove: 16
+    Adam steps, 3 test batches). The launch counts go to 0 just before and are read
     just after: each step must launch ``gp_predict_residuals``
     ``steps_per_batch`` times and each test batch ``gp_predict`` as
     often. Losses must be finite, and both checkpoints must restore.
@@ -541,7 +576,9 @@ def train_main_path(model, ds, steps_per_batch: int, where: str):
     from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.training import Trainer, checkpoint
 
-    steps, test_batches = -(-TRAIN_WINDOWS // BATCH), -(-TEST_WINDOWS // BATCH)
+    batch = int(model.config.batch_size)
+    steps = -(-ds.train_in_batch.shape[0] // batch)
+    test_batches = -(-ds.test_in_batch.shape[0] // batch)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
         fp.fused_predict.launches = 0
@@ -577,23 +614,36 @@ def train_main_path(model, ds, steps_per_batch: int, where: str):
     return run, launches, residual_launches
 
 
-def gradient_parity(make_model, params0, ds, where: str):
-    """The loss and every gradient leaf of one fixed batch of 32 and one
-    draw of noise under 'pallas' and 'solve_free': float64 loss at rtol
-    1e-10, each leaf at rtol 1e-6 with atol 1e-8 times its largest entry;
-    float32 loss at rtol 1e-3 and global gradient norm at rtol 1e-2
-    (hundreds of chained steps amplify float32 rounding)."""
+def gradient_parity(make_model, params0, ds, where: str, batch: int = BATCH,
+                    seq_len: int = SEQ_LEN, f32_vs_f64: bool = False):
+    """The loss and every gradient leaf of one fixed batch (of 32 by
+    default) and one draw of noise under 'pallas' and 'solve_free':
+    float64 loss at rtol 1e-10, each leaf at rtol 1e-6 with atol 1e-8
+    times its largest entry; float32 loss at rtol 1e-3 and global
+    gradient norm at rtol 1e-2 (hundreds of chained steps amplify
+    float32 rounding). With ``f32_vs_f64`` all four runs share one
+    float64 draw, and the float32 kernel path is also held against
+    float64: loglik, kl_x and the global term at rtol 1e-3, the loss at
+    1e-3 of the scale of its terms."""
     import torch
 
-    u = torch.as_tensor(ds.train_in_batch[:BATCH], device=DEVICE)
-    y = torch.as_tensor(ds.train_out_batch[:BATCH], device=DEVICE)
+    u = torch.as_tensor(ds.train_in_batch[:batch], device=DEVICE)
+    y = torch.as_tensor(ds.train_out_batch[:batch], device=DEVICE)
     res = {}
+    # float32 against float64 needs the same draws in both dtypes
+    shared = (make_model("float64", "pallas").draw_noise(
+        torch.Generator(DEVICE).manual_seed(7), seq_len, batch) if f32_vs_f64 else None)
     for dtype in ("float64", "float32"):
         for impl in ("pallas", "solve_free"):
             m = make_model(dtype, impl)
-            noise = m.draw_noise(torch.Generator(DEVICE).manual_seed(7), SEQ_LEN, BATCH)
+            if shared is None:
+                noise = m.draw_noise(torch.Generator(DEVICE).manual_seed(7), seq_len, batch)
+            else:
+                noise = dataclasses.replace(shared, **{
+                    f.name: getattr(shared, f.name).to(m.dtype)
+                    for f in dataclasses.fields(shared)})
             res[(dtype, impl)] = loss_and_grads(m, params0.to(m.dtype), u, y, noise)
-    (l_p, g_p), (l_s, g_s) = res[("float64", "pallas")], res[("float64", "solve_free")]
+    (l_p, g_p, aux64), (l_s, g_s, _) = res[("float64", "pallas")], res[("float64", "solve_free")]
     if abs(float(l_p) - float(l_s)) > 1e-10 * abs(float(l_s)):
         fail(f"{where}: float64 loss: pallas {float(l_p)!r} vs solve_free {float(l_s)!r}")
     worst = 0.0
@@ -604,17 +654,31 @@ def gradient_parity(make_model, params0, ds, where: str):
             fail(f"{where}: float64 gradient of leaf {k}: max abs err {float(err.max()):.3e}, "
                  f"largest entry {scale:.3e} (rtol 1e-6, atol 1e-8 x largest)")
         worst = max(worst, float(err.max()) / max(scale, 1e-300))
-    (l_p32, g_p32), (l_s32, g_s32) = res[("float32", "pallas")], res[("float32", "solve_free")]
+    (l_p32, g_p32, aux32), (l_s32, g_s32, _) = (res[("float32", "pallas")],
+                                                 res[("float32", "solve_free")])
     norm_p = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_p32)))
     norm_s = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_s32)))
     if abs(float(l_p32) - float(l_s32)) > 1e-3 * abs(float(l_s32)):
         fail(f"{where}: float32 loss: pallas {float(l_p32)!r} vs solve_free {float(l_s32)!r}")
     if abs(norm_p - norm_s) > 1e-2 * norm_s:
         fail(f"{where}: float32 gradient norm: pallas {norm_p!r} vs solve_free {norm_s!r}")
+    if f32_vs_f64:
+        # the loss is a difference of large terms (loglik - kl_x, then the
+        # global term): hold each term at rtol 1e-3, and the loss at 1e-3
+        # of the terms' scale
+        for k in ("loglik", "kl_x", "global_term"):
+            if abs(aux32[k] - aux64[k]) > 1e-3 * abs(aux64[k]):
+                fail(f"{where}: float32 {k} {aux32[k]!r} vs float64 {aux64[k]!r} (rtol 1e-3)")
+        scale = abs(aux64["particle_sum"]) / aux64["particle_divisor"] + abs(aux64["global_term"])
+        if abs(float(l_p32) - float(l_p)) > 1e-3 * scale:
+            fail(f"{where}: float32 loss {float(l_p32)!r} vs float64 {float(l_p)!r} (atol 1e-3 "
+                 f"x {scale:.6g}, the scale of its terms)")
     print(f"training parity {where}: float64 loss {float(l_p)!r} vs {float(l_s)!r}, "
           f"{len(g_p)} gradient leaves within rtol 1e-6 (largest error / largest entry "
           f"{worst:.3e}); float32 loss {float(l_p32)!r} vs {float(l_s32)!r} (rtol 1e-3), "
-          f"gradient norm {norm_p!r} vs {norm_s!r} (rtol 1e-2)", flush=True)
+          f"gradient norm {norm_p!r} vs {norm_s!r} (rtol 1e-2)"
+          + (f"; float32 vs float64 loglik {aux32['loglik']!r} vs {aux64['loglik']!r}, kl_x "
+             f"{aux32['kl_x']!r} vs {aux64['kl_x']!r}" if f32_vs_f64 else ""), flush=True)
 
 
 def phase_training(card: str):
@@ -711,6 +775,247 @@ def phase_other_models(card: str):
     return by_path
 
 
+def phase_model_kernels():
+    """Both kernels against their plain versions at the Voliro and
+    Sarcos shapes (``kernel_timing.MODEL_SHAPES``), in float32 (rtol
+    2e-5, atol 1e-5) and float64 (rtol 1e-10, atol 1e-12), each timed by
+    graph replay beside its bound and 50 eager calls of its plain
+    version. Returns {kernel: {path: figures}}."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.utils.kernel_timing import MODEL_SHAPES, graph_replay_ms, kernel_inputs
+
+    def residuals_plain(*args):
+        mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+        return mean, var, kmn, w
+
+    tol = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
+    kernels = {"gp_predict": (fp._fused_predict_value, fp.fused_predict_plain, False),
+               "gp_predict_residuals": (fp.fused_predict_residuals, residuals_plain, True)}
+    out = {name: {} for name in kernels}
+    rng = np.random.default_rng(2)
+    for path, (n, m, di, d) in MODEL_SHAPES.items():
+        for dtype, (rtol, atol) in tol.items():
+            args = kernel_inputs(rng, n, m, di, d, dtype, DEVICE)
+            for name, (kernel, plain, residuals) in kernels.items():
+                got = kernel(*args)
+                sync()
+                want = plain(*args)
+                err = 0.0
+                for g, w in zip(got, want):
+                    e = (g - w).abs()
+                    if bool((e > atol + rtol * w.abs()).any()):
+                        fail(f"{name} {path} {dtype}: max abs err {float(e.max()):.3e} outside "
+                             f"rtol {rtol} atol {atol}")
+                    err = max(err, float(e.max()))
+                dev_ms = graph_replay_ms(lambda: kernel(*args))
+                plain_ms = cuda_ms(lambda: plain(*args), 50)
+                dt = str(dtype)[6:]
+                bound_ms, bound_by = bound(n, m, di, d, dt, residuals)
+                fig = out[name].setdefault(path, {"shape": f"N={n} M={m} DI={di} D={d}"})
+                if dtype == torch.float32:
+                    fig.update(ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, max_abs_err=err)
+                else:
+                    fig.update(ms_f64=dev_ms, plain_ms_f64=plain_ms, bound_ms_f64=bound_ms)
+                print(f"{name} {dt} {path} N={n} M={m} DI={di} D={d}: ok (max abs err "
+                      f"{err:.3e}); device {dev_ms:.5f} ms (graph replay), bound "
+                      f"{bound_ms:.5f} ms ({bound_by}), plain {plain_ms:.4f} ms", flush=True)
+    return out
+
+
+def timed_steps(trainer, args, n: int):
+    """``n + 1`` ``train_step`` calls on one batch, each timed on the
+    host clock up to a device sync; the peak allocated device memory
+    over them. The ``timed_train`` tuple, for ``report_steps``."""
+    import torch
+
+    times = []
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(n + 1):
+        t0 = time.perf_counter()
+        trainer.train_step(*args)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    return trainer, times, peak, args
+
+
+def voliro_predict_parity(make_model, params, u, y):
+    """Voliro's predict dict under 'pallas' against 'solve_free' in
+    float64 on one batch and seed: every output at rtol 1e-8, atol
+    1e-10 (the batch predictors do not take a dict-predict model)."""
+    import numpy as np
+    import torch
+
+    outs = {}
+    for impl in ("pallas", "solve_free"):
+        m = make_model("float64", impl)
+        with torch.inference_mode():
+            gen = torch.Generator(device=DEVICE).manual_seed(123)
+            out = m.predict(params.to(m.dtype), u, y, gen)
+        outs[impl] = {k: v.cpu().numpy() for k, v in out.items()}
+    worst = 0.0
+    for k, a in outs["pallas"].items():
+        b = outs["solve_free"][k]
+        if not (np.isfinite(a).all() and np.allclose(a, b, rtol=1e-8, atol=1e-10)):
+            fail(f"Voliro: float64 predict {k}: kernel path vs solve_free differ by "
+                 f"{np.abs(a - b).max():.3e}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    print(f"parity Voliro: float64 predict ({', '.join(outs['pallas'])}) max abs diff "
+          f"{worst:.3e} (rtol 1e-8)", flush=True)
+
+
+def phase_voliro(card: str, data_dir: str):
+    """The Voliro main path: ``run_voliro.main`` at the full width of
+    run_voliro.py (B 16, M 20, S 20, seq 64 / stride 50), float32,
+    'pallas', one epoch, on synthetic flight logs. Each Adam step
+    launches ``gp_predict_residuals`` 1 + T times (the batched force GP,
+    then one recognition step per time step; the forward pass is pure
+    physics), each test batch and each ``OutputsVoliro`` predict over a
+    log of T steps ``gp_predict`` 1 + T times. Then the parity of the two
+    gp_impl paths, step time and peak memory (10 steps on one batch), and
+    one profiled step. Returns the launches (value, residual)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+    import scipy.io
+    import torch
+
+    from cbfssm_tpu_torch import run_voliro
+    from cbfssm_tpu_torch.models import Voliro
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.outputs import Outputs, OutputsVoliro
+
+    def make_model(dtype, impl):
+        return Voliro(dict(run_voliro.model_config, dtype=dtype, gp_impl=impl), device=DEVICE)
+
+    seq_len, batch = run_voliro.seq_len, run_voliro.model_config["batch_size"]
+    # without matplotlib (the card's machine may lack it) the two plots
+    # are skipped here, and only here; voliro_forces.mat is checked
+    plots = importlib.util.find_spec("matplotlib") is not None
+    saved = Outputs.training_stats, OutputsVoliro._plot_forces
+    if not plots:
+        Outputs.training_stats = OutputsVoliro._plot_forces = lambda self, *a: None
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+            fp.fused_predict.launches = 0
+            fp.fused_predict_residuals.launches = 0
+            t0 = time.perf_counter()
+            outputs = run_voliro.main(
+                root=root, epochs=1, data_dir=data_dir,
+                config_overrides={"gp_impl": "pallas", "dtype": "float32"}, device=DEVICE)
+            sync()
+            run_s = time.perf_counter() - t0
+            launches = fp.fused_predict.launches
+            residual_launches = fp.fused_predict_residuals.launches
+            if plots and os.path.getsize(os.path.join(root, "voliro_forces.pdf")) == 0:
+                fail("Voliro: voliro_forces.pdf is empty")
+            forces = scipy.io.loadmat(os.path.join(root, "voliro_forces.mat"))
+    finally:
+        Outputs.training_stats, OutputsVoliro._plot_forces = saved
+    trainer, ds = outputs.trainer, outputs.ds
+    if not (np.isfinite(trainer.train_all).all() and np.isfinite(trainer.test_all).all()):
+        fail(f"Voliro: non-finite losses: train {trainer.train_all}, test {trainer.test_all}")
+    steps = -(-ds.train_in_batch.shape[0] // batch)
+    test_batches = -(-ds.test_in_batch.shape[0] // batch)
+    logs = (ds.train_in.shape[1] + ds.test_in.shape[1], ds.test_in2.shape[1])
+    want_value = test_batches * (1 + seq_len) + sum(1 + t for t in logs)
+    if residual_launches != steps * (1 + seq_len):
+        fail(f"Voliro: gp_predict_residuals launches {residual_launches} != {steps} steps x "
+             f"{1 + seq_len}")
+    if launches != want_value:
+        fail(f"Voliro: gp_predict launches {launches} != {test_batches} test batches x "
+             f"{1 + seq_len} + OutputsVoliro predicts over logs of {logs} steps (1 + T each)")
+    for tag, t_len in zip(("train", "transfer"), logs):
+        for k in ("force_torque", "ft_mean", "ft_var"):
+            a = forces[f"{k}_{tag}"]
+            if a.shape != (t_len, 6) or not np.isfinite(a).all():
+                fail(f"Voliro: voliro_forces.mat {k}_{tag} has shape {a.shape} (want "
+                     f"{(t_len, 6)}) or is not finite")
+        if not (forces[f"ft_var_{tag}"] > 0).all():
+            fail(f"Voliro: voliro_forces.mat ft_var_{tag} is not positive")
+    print(f"Voliro: run_voliro.main, 1 epoch ({steps} Adam steps, {test_batches} test batches) "
+          f"and OutputsVoliro in {run_s:.2f} s; train loss {trainer.train_all[0]!r}, test loss "
+          f"{trainer.test_all[0]!r}; gp_predict_residuals launches {residual_launches} = "
+          f"{steps} x {1 + seq_len}, gp_predict launches {launches} = {test_batches} x "
+          f"{1 + seq_len} + {' + '.join(f'(1 + {t})' for t in logs)}; voliro_forces.mat "
+          "finite, "
+          + ("voliro_forces.pdf written" if plots else
+             "plots skipped: matplotlib is not installed here"), flush=True)
+
+    params = trainer.params.detach()
+    gradient_parity(make_model, params, ds, "Voliro", batch=batch, seq_len=seq_len,
+                    f32_vs_f64=True)
+    voliro_predict_parity(make_model, params, ds.train_in_batch[:batch],
+                          ds.train_out_batch[:batch])
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    args = (torch.as_tensor(ds.train_in_batch[:batch], **kw),
+            torch.as_tensor(ds.train_out_batch[:batch], **kw), torch.ones(batch, **kw),
+            torch.Generator(device=DEVICE).manual_seed(5))
+    report_steps(f"Voliro gp_impl=pallas B={batch} float32 (10 steps on one batch)",
+                 timed_steps(trainer, args, 10), card)
+    return launches, residual_launches
+
+
+def phase_sarcos(card: str, data_dir: str):
+    """The Sarcos training path: CBFSSM at the full width of
+    run_sarcos.py (dim_x 14, M 100, S 20, B 5, seq 250 / stride 10,
+    recog_len 16), float32, 'pallas', through ``Trainer`` for one epoch
+    cut to 16 Adam steps (the first 80 of the 600 training windows of a
+    synthetic sarcos_inv.mat; all 60 test windows). Each step launches
+    ``gp_predict_residuals`` 281 times (2 x 16 blocked recognition steps
+    + 249 forward steps), each test batch ``gp_predict`` as often. Then
+    the parity of the two gp_impl paths, step time, peak memory and one
+    profiled step. Returns the launches (value, residual)."""
+    from cbfssm_tpu_torch import run_sarcos
+    from cbfssm_tpu_torch.data import Sarcos
+    from cbfssm_tpu_torch.models import CBFSSM
+
+    def make_model(dtype, impl):
+        return CBFSSM(dict(run_sarcos.model_config, dtype=dtype, gp_impl=impl), device=DEVICE)
+
+    seq_len, batch = run_sarcos.seq_len, run_sarcos.model_config["batch_size"]
+    recog_len = run_sarcos.model_config["recog_len"]
+    ds = Sarcos(seq_len, run_sarcos.seq_stride, data_dir=data_dir)
+    if ds.train_in_batch.shape[0] < SARCOS_STEPS * batch:
+        fail(f"Sarcos gives {ds.train_in_batch.shape[0]} training windows")
+    ds.train_in_batch = ds.train_in_batch[:SARCOS_STEPS * batch]
+    ds.train_out_batch = ds.train_out_batch[:SARCOS_STEPS * batch]
+    per_batch = 2 * recog_len + seq_len - 1
+    run, launches, residual_launches = train_main_path(make_model("float32", "pallas"), ds,
+                                                       per_batch, "Sarcos")
+    params = run[0].params.detach()
+    gradient_parity(make_model, params, ds, "Sarcos", batch=batch, seq_len=seq_len,
+                    f32_vs_f64=True)
+    predict_parity(make_model, params, ds.test_in_batch[:8], ds.test_out_batch[:8], "Sarcos",
+                   seq_len=seq_len)
+    report_steps(f"Sarcos gp_impl=pallas B={batch} float32", run, card)
+    return launches, residual_launches
+
+
+def phase_voliro_sarcos(card: str):
+    """Phase 7: the kernels at the new shapes, then Voliro and Sarcos on
+    synthetic data files written from seed 0."""
+    import tempfile
+
+    from cbfssm_tpu_torch.data import synthetic
+
+    model_kernels = phase_model_kernels()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as data_dir:
+        synthetic.stage_all(data_dir, seed=0)
+        paths = {"voliro": phase_voliro(card, data_dir),
+                 "training_sarcos": phase_sarcos(card, data_dir)}
+    return model_kernels, paths
+
+
 def main() -> None:
     if not (ROOT / "cbfssm_tpu_torch" / "__init__.py").is_file():
         fail("cbfssm_tpu_torch/ is not beside chip_smoke.py; run from the repository")
@@ -732,12 +1037,13 @@ def main() -> None:
     serve_launches = timed("4 serving", phase_serving, card)
     train_launches, residual_launches = timed("5 training", phase_training, card)
     other = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
+    model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
     # launches per main path: (gp_predict, gp_predict_residuals)
     paths = {"serving": (serve_launches, 0), "training": (train_launches, residual_launches),
-             **other}
+             **other, **new_paths}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []
@@ -769,6 +1075,7 @@ def main() -> None:
             "shape_n1600": f"float32 N={n2} M={m2} DI={di2} D={d2}",
             "eager_ms": k_ms,
             "device_ms_f64": {f"N={nn}": t[(torch.float64, nn)][0] for nn in TIMED_N},
+            "model_shapes": model_kernels[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

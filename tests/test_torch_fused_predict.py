@@ -23,7 +23,8 @@ import torch
 
 from cbfssm_tpu_torch.ops import _build
 from cbfssm_tpu_torch.ops import fused_predict as fp
-from cbfssm_tpu_torch.utils.kernel_timing import KERNEL_SHAPES, clamp_kernel_inputs, kernel_inputs
+from cbfssm_tpu_torch.utils.kernel_timing import (KERNEL_SHAPES, MODEL_SHAPES, clamp_kernel_inputs,
+                                                  kernel_inputs)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -315,3 +316,42 @@ def test_cuda_inducing_point_cap(cuda_device, dtype):
     with pytest.raises(ValueError, match=match):
         fp.fused_predict_residuals(*over)
     assert (fp.fused_predict.launches, fp.fused_predict_residuals.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-5),
+                                             (torch.float64, 1e-10, 1e-12)])
+@pytest.mark.parametrize("path", sorted(MODEL_SHAPES))
+def test_cuda_kernels_at_model_shapes(cuda_device, dtype, rtol, atol, path):
+    """Both kernels against their plain versions at the shapes of the
+    Voliro and Sarcos paths (mean, var and, with residuals, kmn and w);
+    at D = 6, 7 and 14 every pass of the per-row reduction adds the same
+    base variance."""
+    n, m, di, d = MODEL_SHAPES[path]
+    args = plain_inputs(np.random.default_rng(n + d), n, m, di, d, dtype, cuda_device)
+    before = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+    value = fp._fused_predict_value(*args)
+    residuals = fp.fused_predict_residuals(*args)
+    torch.cuda.synchronize()
+    assert (fp.fused_predict.launches, fp.fused_predict_residuals.launches) == (
+        before[0] + 1, before[1] + 1)
+    mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+    for g, ref in zip((*value, *residuals), (mean, var, mean, var, kmn, w)):
+        torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("di,d", [(12, 3), (19, 6), (21, 7), (21, 14)])
+def test_cuda_inducing_point_cap_at_model_widths(cuda_device, dtype, di, d):
+    """The cap at the Voliro and Sarcos widths lies above their M (20,
+    100), and at the cap both kernels match the plain version."""
+    rtol, atol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+    cap = fp.max_inducing_points(dtype, di, d, cuda_device)
+    assert 100 < cap < 1000
+    args = plain_inputs(np.random.default_rng(cap + di), 37, cap, di, d, dtype, cuda_device)
+    got = (*fp._fused_predict_value(*args), *fp.fused_predict_residuals(*args))
+    torch.cuda.synchronize()
+    mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+    for g, ref in zip(got, (mean, var, mean, var, kmn, w)):
+        torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)

@@ -24,6 +24,17 @@ import cbfssm_tpu_torch.training, cbfssm_tpu_torch.training.checkpoint
 import cbfssm_tpu_torch.training.trainer, cbfssm_tpu_torch.utils.profiling
 import cbfssm_tpu_torch.outputs, cbfssm_tpu_torch.outputs.calibration
 import cbfssm_tpu_torch.outputs.outputs_robomove, cbfssm_tpu_torch.run_robomove
+import cbfssm_tpu_torch.ops.quaternion, cbfssm_tpu_torch.ops.distributions
+import cbfssm_tpu_torch.utils.rotations, cbfssm_tpu_torch.utils.kernel_timing
+import cbfssm_tpu_torch.data.voliro_loader, cbfssm_tpu_torch.data.datasets
+import cbfssm_tpu_torch.data.system_id_tasks, cbfssm_tpu_torch.data.ds_manager
+import cbfssm_tpu_torch.data.generators, cbfssm_tpu_torch.data.synthetic
+import cbfssm_tpu_torch.models.voliro
+import cbfssm_tpu_torch.outputs.outputs_voliro, cbfssm_tpu_torch.outputs.summary
+import cbfssm_tpu_torch.run_voliro, cbfssm_tpu_torch.run_sarcos
+import cbfssm_tpu_torch.run_spring, cbfssm_tpu_torch.run_smallscale
+import cbfssm_tpu_torch.create_datasets.create_robomove
+import cbfssm_tpu_torch.create_datasets.create_spring_nonlinear
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu',
