@@ -23,6 +23,14 @@ dim_x] + bias}}``: ``conv.weight`` is the kernel as ``[5, d, 3]``. A
 Dense kernel is the transpose of ``readout.weight``. Checkpoints of the two
 packages are not interchangeable (orbax against ``torch.save``): weights
 cross over through these functions.
+
+Stacked trees (multi-seed and sweep training). Every function here also
+takes a tree whose arrays carry a leading lane axis, as
+``jax.vmap(model.init)`` gives it, and gives the port's stacked params
+(every leaf ``[L, ...]``, the layout of
+``cbfssm_tpu_torch.training.MultiSeedTrainer``), and back: the
+recognition transposes act on the last axes. :func:`lane` takes one
+lane of such a tree and :func:`stack` stacks single trees.
 """
 
 from __future__ import annotations
@@ -93,6 +101,11 @@ def _leaf(tree: dict, *path):
     return np.asarray(node)
 
 
+def _t(a):
+    """The transpose of the last two axes."""
+    return np.swapaxes(a, -1, -2)
+
+
 def _recognition_from_flax(recog: dict, tensor) -> dict:
     """The port's recognition leaves from a flax tree ({} for 'output')."""
     if not recog:
@@ -103,19 +116,20 @@ def _recognition_from_flax(recog: dict, tensor) -> dict:
             return [_leaf(recog, "params", "GRUCell_0", kind + g, leaf) for g in GRU_GATES]
 
         leaves = {
-            "cell.weight_ih": np.concatenate(gates("i", "kernel"), axis=1).T,
-            "cell.bias_ih": np.concatenate(gates("i", "bias")),
-            "cell.weight_hh": np.concatenate(gates("h", "kernel"), axis=1).T,
+            "cell.weight_ih": _t(np.concatenate(gates("i", "kernel"), axis=-1)),
+            "cell.bias_ih": np.concatenate(gates("i", "bias"), axis=-1),
+            "cell.weight_hh": _t(np.concatenate(gates("h", "kernel"), axis=-1)),
             "cell.bias_hn": _leaf(recog, "params", "GRUCell_0", "hn", "bias"),
         }
     elif "Conv_0" in params:
         leaves = {
-            "conv.weight": _leaf(recog, "params", "Conv_0", "kernel").transpose(2, 1, 0),
+            # [3, d, 5] -> [5, d, 3] (behind any lane axis)
+            "conv.weight": np.swapaxes(_leaf(recog, "params", "Conv_0", "kernel"), -1, -3),
             "conv.bias": _leaf(recog, "params", "Conv_0", "bias"),
         }
     else:
         raise KeyError("recognition parameters lack leaf params/GRUCell_0 or params/Conv_0")
-    leaves["readout.weight"] = _leaf(recog, "params", "Dense_0", "kernel").T
+    leaves["readout.weight"] = _t(_leaf(recog, "params", "Dense_0", "kernel"))
     leaves["readout.bias"] = _leaf(recog, "params", "Dense_0", "bias")
     return {k: tensor(np.ascontiguousarray(v)) for k, v in leaves.items()}
 
@@ -126,19 +140,19 @@ def _recognition_to_flax(recog: dict) -> dict:
         return {}
     a = {k: v.detach().cpu().numpy() for k, v in recog.items()}
     if "cell.weight_ih" in a:
-        h = a["cell.bias_hn"].shape[0]
         cell = {}
+        h = a["cell.bias_hn"].shape[-1]
         for j, g in enumerate(GRU_GATES):
             rows = slice(j * h, (j + 1) * h)
-            cell["i" + g] = {"kernel": a["cell.weight_ih"][rows].T.copy(),
-                             "bias": a["cell.bias_ih"][rows].copy()}
-            cell["h" + g] = {"kernel": a["cell.weight_hh"][rows].T.copy()}
+            cell["i" + g] = {"kernel": _t(a["cell.weight_ih"][..., rows, :]).copy(),
+                             "bias": a["cell.bias_ih"][..., rows].copy()}
+            cell["h" + g] = {"kernel": _t(a["cell.weight_hh"][..., rows, :]).copy()}
         cell["hn"]["bias"] = a["cell.bias_hn"]
         params = {"GRUCell_0": cell}
     else:
-        params = {"Conv_0": {"kernel": a["conv.weight"].transpose(2, 1, 0).copy(),
+        params = {"Conv_0": {"kernel": np.swapaxes(a["conv.weight"], -1, -3).copy(),
                              "bias": a["conv.bias"]}}
-    params["Dense_0"] = {"kernel": a["readout.weight"].T.copy(), "bias": a["readout.bias"]}
+    params["Dense_0"] = {"kernel": _t(a["readout.weight"]).copy(), "bias": a["readout.bias"]}
     return {"params": params}
 
 
@@ -210,3 +224,21 @@ def voliro_params_to_numpy(params: VoliroParams) -> dict:
         "gp_b": {k: array(getattr(params.gp_b, k)) for k in GP_LEAVES},
         **{k: array(getattr(params, k)) for k in VOLIRO_NOISE_LEAVES},
     }
+
+
+def lane(tree, i: int):
+    """Lane ``i`` of a stacked tree (a nested dict of arrays that all
+    carry a leading lane axis): the same nested dict of each array's
+    lane ``i``."""
+    if isinstance(tree, dict):
+        return {k: lane(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def stack(trees):
+    """The stacked tree of single trees of one structure: each array
+    with a new leading lane axis (the inverse of :func:`lane`)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])

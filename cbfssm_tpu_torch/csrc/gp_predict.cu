@@ -19,6 +19,17 @@
 // Accumulation is in the storage type with IEEE FMA (no tensor cores, so
 // no TF32). Both clamps of the TPU kernel are kept.
 //
+// Lanes. The *_lanes entry points run L independent predicts in one
+// launch, the counterpart of the batched pallas_call that jax.vmap makes
+// of the two TPU kernels (multi-seed and sweep training): every operand
+// and output carries a leading lane axis (x [L, N, DI], zs [L, M, DI],
+// inv_ls [L, DI], kvar [L], kinv [L, M, M], alpha and var_q [L, M, D];
+// mean and var [L, N, D], kmn and w [L, N, M]), the grid is (blocks a
+// lane, L) and blockIdx.y picks the lane, whose block offsets every
+// pointer by it. The row tile is chosen from the L * N rows of the whole
+// launch; the M cap (gp_predict_max_m) holds per lane. The plain entry
+// points are the L = 1 case.
+//
 // Design. One block of 256 threads per tile of TN rows; rows are
 // independent, so nothing is reduced across blocks, and the ragged last
 // tile is bounded by its own row count. Nothing is padded in device
@@ -52,8 +63,9 @@
 //    16-byte chunks, so that 16-byte stores of neighbouring rows fall on
 //    distinct banks.
 //
-// Tiles. TN is a multiple of 4 chosen from N: the smallest for which the
-// grid has at most kBlocksPerSm = 2 blocks per SM, so that the main-path
+// Tiles. TN is a multiple of 4 chosen from the rows of the launch (N, or
+// L * N with lanes): the smallest for which the grid has at most
+// kBlocksPerSm = 2 blocks per SM, so that the main-path
 // shapes fill the card's 132 SMs in one wave; a tile that does not fit
 // the opt-in shared-memory limit shrinks by 4 rows until it does. All of
 // kinv is staged, so M is capped: gp_predict_max_m gives the largest M
@@ -345,6 +357,22 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
     T* s_w = smem + L.w;          // [tn, ldm]
     const int mp = L.mp, ldm = L.ldm;
 
+    // this block's lane: every operand and output is offset by it
+    const size_t lane_id = blockIdx.y;
+    x += lane_id * n * di;
+    zs += lane_id * m * di;
+    inv_ls += lane_id * di;
+    kvar_ptr += lane_id;
+    kinv += lane_id * m * m;
+    alpha += lane_id * m * d;
+    var_q += lane_id * m * d;
+    mean_out += lane_id * n * d;
+    var_out += lane_id * n * d;
+    if (kResiduals) {
+        kmn_out += lane_id * n * m;
+        w_out += lane_id * n * m;
+    }
+
     const int tid = threadIdx.x;
     const int row0 = blockIdx.x * tn;
     const int rows = min(tn, n - row0);
@@ -503,10 +531,12 @@ size_t smem_bytes(int m, int di, int d, int tn) {
 }
 
 // Rows per block: the smallest multiple of 4 (at most kMaxTileRows) that
-// gives at most kBlocksPerSm blocks per SM.
-int tile_rows(int n, int sms) {
-    const int per_block = (n + kBlocksPerSm * sms - 1) / (kBlocksPerSm * sms);
-    return std::min(kMaxTileRows, std::max(kR, round_up(per_block, kR)));
+// gives at most kBlocksPerSm blocks per SM over `rows`, the rows of all
+// lanes of the launch.
+int tile_rows(long long rows, int sms) {
+    const long long per_block = (rows + kBlocksPerSm * sms - 1) / (kBlocksPerSm * sms);
+    const long long tile = (per_block + kR - 1) / kR * kR;
+    return (int)std::min<long long>(kMaxTileRows, std::max<long long>(kR, tile));
 }
 
 // Per device, looked up once: the opt-in shared-memory limit of a block
@@ -561,23 +591,26 @@ int max_m(int di, int d, int limit) {
     return m;
 }
 
+// `lanes` independent predicts (lane-major operands, see the top of the
+// file); lanes = 1 is the plain call.
 template <typename T, bool kResiduals>
 int launch(const T* x, const T* zs, const T* inv_ls, const T* kvar,
            const T* kinv, const T* alpha, const T* var_q, T* mean, T* var,
-           T* kmn, T* w, int n, int m, int di, int d, void* stream) {
+           T* kmn, T* w, int lanes, int n, int m, int di, int d, void* stream) {
+    if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, limit = 0, sms = 0;
     cudaError_t err = current_limits(&dev, &limit, &sms);
     if (err != cudaSuccess) return (int)err;
     // shrink the row tile until the block fits; a kinv too large for
     // shared memory at any tile (M above max_m) is refused by
     // cudaFuncSetAttribute below
-    int tn = tile_rows(n, sms);
+    int tn = tile_rows((long long)lanes * n, sms);
     while (tn > kR && smem_bytes<T>(m, di, d, tn) > (size_t)limit) tn -= kR;
     const size_t bytes = smem_bytes<T>(m, di, d, tn);
     err = reserve_smem<T, kResiduals>(dev, bytes);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (n + tn - 1) / tn;
-    gp_predict_kernel<T, kResiduals><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+    const dim3 grid((n + tn - 1) / tn, lanes);
+    gp_predict_kernel<T, kResiduals><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
         x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w, n, m, di, d, tn);
     return (int)cudaGetLastError();
 }
@@ -594,7 +627,7 @@ int gp_predict_f32(const float* x, const float* zs, const float* inv_ls,
                    const float* var_q, float* mean, float* var, int n, int m,
                    int di, int d, void* stream) {
     return launch<float, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
-                                nullptr, n, m, di, d, stream);
+                                nullptr, 1, n, m, di, d, stream);
 }
 
 int gp_predict_f64(const double* x, const double* zs, const double* inv_ls,
@@ -602,7 +635,7 @@ int gp_predict_f64(const double* x, const double* zs, const double* inv_ls,
                    const double* var_q, double* mean, double* var, int n, int m,
                    int di, int d, void* stream) {
     return launch<double, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
-                                 nullptr, n, m, di, d, stream);
+                                 nullptr, 1, n, m, di, d, stream);
 }
 
 // As gp_predict_*, and also writes kmn [N, M] and w [N, M] (row-major).
@@ -610,8 +643,8 @@ int gp_predict_residuals_f32(const float* x, const float* zs, const float* inv_l
                              const float* kvar, const float* kinv, const float* alpha,
                              const float* var_q, float* mean, float* var, float* kmn,
                              float* w, int n, int m, int di, int d, void* stream) {
-    return launch<float, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w, n,
-                               m, di, d, stream);
+    return launch<float, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w, 1,
+                               n, m, di, d, stream);
 }
 
 int gp_predict_residuals_f64(const double* x, const double* zs, const double* inv_ls,
@@ -619,7 +652,44 @@ int gp_predict_residuals_f64(const double* x, const double* zs, const double* in
                              const double* var_q, double* mean, double* var, double* kmn,
                              double* w, int n, int m, int di, int d, void* stream) {
     return launch<double, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w,
-                                n, m, di, d, stream);
+                                1, n, m, di, d, stream);
+}
+
+// `lanes` independent predicts in one launch: as gp_predict_* and
+// gp_predict_residuals_*, with a leading lane axis on every operand and
+// output (see the top of the file).
+int gp_predict_lanes_f32(const float* x, const float* zs, const float* inv_ls,
+                         const float* kvar, const float* kinv, const float* alpha,
+                         const float* var_q, float* mean, float* var, int lanes, int n,
+                         int m, int di, int d, void* stream) {
+    return launch<float, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
+                                nullptr, lanes, n, m, di, d, stream);
+}
+
+int gp_predict_lanes_f64(const double* x, const double* zs, const double* inv_ls,
+                         const double* kvar, const double* kinv, const double* alpha,
+                         const double* var_q, double* mean, double* var, int lanes, int n,
+                         int m, int di, int d, void* stream) {
+    return launch<double, false>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, nullptr,
+                                 nullptr, lanes, n, m, di, d, stream);
+}
+
+int gp_predict_residuals_lanes_f32(const float* x, const float* zs, const float* inv_ls,
+                                   const float* kvar, const float* kinv, const float* alpha,
+                                   const float* var_q, float* mean, float* var, float* kmn,
+                                   float* w, int lanes, int n, int m, int di, int d,
+                                   void* stream) {
+    return launch<float, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w,
+                               lanes, n, m, di, d, stream);
+}
+
+int gp_predict_residuals_lanes_f64(const double* x, const double* zs, const double* inv_ls,
+                                   const double* kvar, const double* kinv, const double* alpha,
+                                   const double* var_q, double* mean, double* var, double* kmn,
+                                   double* w, int lanes, int n, int m, int di, int d,
+                                   void* stream) {
+    return launch<double, true>(x, zs, inv_ls, kvar, kinv, alpha, var_q, mean, var, kmn, w,
+                                lanes, n, m, di, d, stream);
 }
 
 const char* gp_predict_error_string(int code) {

@@ -36,6 +36,14 @@ class PredictOutput:
         return PredictOutput(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
 
 
+def hyper(value):
+    """A loss-time hyperparameter of the config (k_factor, an entry of
+    loss_factors, ...): a tensor as it is, which is how a sweep passes
+    its values (0-d, batched over lanes under ``torch.func.vmap``);
+    anything else as a Python float, as before."""
+    return value if isinstance(value, torch.Tensor) else float(value)
+
+
 def moments_over_samples(x):
     """Population mean/variance over the particle axis of [B, T, S, D]."""
     mean = torch.mean(x, dim=2)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from cbfssm_tpu_torch.models import adjoint, segmentation
-from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput
+from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput, hyper
 from cbfssm_tpu_torch.ops import gp, transforms
 
 
@@ -82,6 +82,9 @@ class RolloutNoise:
 
 
 class CBFSSM(BaseSSM):
+    # loss-time fields this model reads (the fields a sweep may vary)
+    SWEEPABLE_HYPERS = frozenset({"loss_factors", "k_factor"})
+
     def __init__(self, config, device="cuda"):
         super().__init__(config, device)
         self.dim_x = int(self.config.dim_x)
@@ -199,11 +202,16 @@ class CBFSSM(BaseSSM):
 
         def shift_stack(a):
             """[T, ...] -> [2, t_ext, ...]: run r's view, zero-padded by
-            its shift at the bottom and to t_ext at the top."""
-            out = a.new_zeros((2, t_ext) + tuple(a.shape[1:]))
-            for r, s_r in enumerate(shifts):
-                out[r, s_r:s_r + t_len] = a
-            return out
+            its shift at the bottom and to t_ext at the top (built by
+            concatenation, not written in place, so that it runs under
+            torch.func.vmap)."""
+            rest = tuple(a.shape[1:])
+
+            def zeros(k):
+                return torch.zeros((k,) + rest, dtype=a.dtype, device=a.device)
+
+            return torch.stack([torch.cat((zeros(s_r), a, zeros(t_ext - s_r - t_len)))
+                                for s_r in shifts])
 
         def to_steps(a, lead_run_axis):
             """[2, t_ext, ...] (or [t_ext, 2, ...]) -> [two_l, 2, K, ...]
@@ -261,7 +269,7 @@ class CBFSSM(BaseSSM):
         t_len, b = u_tm.shape[0], u_tm.shape[1]
         cond_mask = segmentation.forward_condition_mask(t_len, self.config.recog_len)
         step = adjoint.forward_step(
-            cache_f, var_x, var_y, float(self.config.k_factor),
+            cache_f, var_x, var_y, hyper(self.config.k_factor),
             (b, self.samples, self.dim_x, self.dim_u), self._gp_predict,
         )
         x = y_tilde[0]
@@ -313,7 +321,7 @@ class CBFSSM(BaseSSM):
         if weights is None:
             weights = torch.ones(y_tm.shape[1], **kw)
         weights = torch.as_tensor(weights, **kw)
-        lam1, lam2 = (float(f) for f in self.config.loss_factors[:2])
+        lam1, lam2 = (hyper(self.config.loss_factors[i]) for i in range(2))
         kl_zf = gp.prior_kl(params.gp_f, cache_f)
         kl_zb = gp.prior_kl(params.gp_b, cache_b)
         per_seq = lam1 * (loglik - kl_x) + lam2 * entropy

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from cbfssm_tpu_torch.config import as_config
 from cbfssm_tpu_torch.models import segmentation
-from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM
+from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM, hyper
 from cbfssm_tpu_torch.ops import gp, transforms
 from cbfssm_tpu_torch.ops.distributions import kl_diag_gaussians
 
@@ -62,7 +62,7 @@ class CBFSSMHALF(RecognitionSSM):
         Python bool: an unconditioned step takes the prior transition
         and a KL of zero, as the JAX step's ``jnp.where`` selects."""
         dx, dy, du = self.dim_x, self.dim_y, self.dim_u
-        k_factor = float(self.config.k_factor)
+        k_factor = hyper(self.config.k_factor)
 
         def pad_h(a):
             return F.pad(a, (0, dx - dy))
@@ -117,7 +117,7 @@ class CBFSSMHALF(RecognitionSSM):
         )
         loglik = self._loglik(x_final[..., : self.dim_y], y_tm, var_y[: self.dim_y])
         weights = self._weights(weights, y_tm.shape[1])
-        lam1 = float(self.config.loss_factors[0])
+        lam1 = hyper(self.config.loss_factors[0])
         kl_zf = gp.prior_kl(params.gp_f, cache_f)
         particle_sum = lam1 * torch.dot(loglik - kl_x, weights)
         global_term = -kl_zf

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from cbfssm_tpu_torch.config import as_config
-from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM
+from cbfssm_tpu_torch.models.base import PredictOutput, RecognitionParams, RecognitionSSM, hyper
 from cbfssm_tpu_torch.ops import gp, transforms
 
 
@@ -73,7 +73,7 @@ class PRSSM(RecognitionSSM):
         x_final, (var_y, cache_f, y_tm) = self._rollout(params, u, y, generator, noise)
         loglik = self._loglik(x_final[..., : self.dim_y], y_tm, var_y[: self.dim_y])
         weights = self._weights(weights, y_tm.shape[1])
-        lam1 = float(self.config.loss_factors[0])
+        lam1 = hyper(self.config.loss_factors[0])
         kl_z = gp.prior_kl(params.gp_f, cache_f)
         particle_sum = lam1 * torch.dot(loglik, weights)
         global_term = -kl_z

@@ -34,7 +34,12 @@ class GRURecognition(nn.Module):
     flax puts no bias on the recurrent r and z gates: the first 2 x 16
     entries of ``cell.bias_hh`` are held at zero, and its trainable leaf
     is the last 16 (``cell.bias_hn``). torch's gate order is r, z, n.
-    ``nn.GRUCell`` runs cuBLAS matmuls, which the models' TF32 check
+
+    The cell holds the parameters; the step is written out in torch ops
+    in ``aten::gru_cell``'s order (its input projection taken for all
+    steps at once), because ``gru_cell`` has no batching rule for
+    ``torch.func.vmap`` and would loop over the lanes of a multi-seed
+    program. The matmuls run on cuBLAS, which the models' TF32 check
     covers (``nn.GRU`` would run cuDNN)."""
 
     LEAVES = ("cell.weight_ih", "cell.bias_ih", "cell.weight_hh", "cell.bias_hn",
@@ -46,9 +51,16 @@ class GRURecognition(nn.Module):
         self.readout = nn.Linear(HIDDEN, dim_x, dtype=dtype, device=device)
 
     def forward(self, uy):  # [B, T, d] -> [B, dim_x]
+        cell = self.cell
+        gates_in = F.linear(uy, cell.weight_ih, cell.bias_ih)  # [B, T, 3 x 16]
         h = uy.new_zeros((uy.shape[0], HIDDEN))
         for t in range(uy.shape[1] - 1, -1, -1):
-            h = self.cell(uy[:, t], h)
+            i_r, i_z, i_n = gates_in[:, t].chunk(3, dim=-1)
+            h_r, h_z, h_n = F.linear(h, cell.weight_hh, cell.bias_hh).chunk(3, dim=-1)
+            reset = torch.sigmoid(h_r + i_r)
+            update = torch.sigmoid(h_z + i_z)
+            new = torch.tanh(i_n + h_n * reset)
+            h = (h - new) * update + new
         return self.readout(h)
 
     def module_tensors(self, leaves: dict) -> dict:

@@ -31,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, moments_over_samples
+from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, hyper, moments_over_samples
 from cbfssm_tpu_torch.ops import gp, quaternion, transforms
 from cbfssm_tpu_torch.ops.distributions import beta_logpdf, kl_diag_gaussians
 
@@ -349,7 +349,7 @@ class Voliro(BaseSSM):
         n_reg = torch.sum(beta_logpdf(ex["var_z"] / n_scale, n_a, n_b))
         l_reg = torch.sum(beta_logpdf(params.gp_f.kern_len / l_scale, l_a, l_b))
 
-        lam = [float(f) for f in cfg.loglik_factor[:3]]
+        lam = [hyper(cfg.loglik_factor[i]) for i in range(3)]
         per_seq = lam[0] * (loglik - kl_x) + lam[1] * entropy
         particle_sum = torch.dot(per_seq, weights)
         global_term = lam[2] * (n_reg + l_reg) - kl_zf - kl_zb

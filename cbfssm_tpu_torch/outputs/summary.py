@@ -2,10 +2,9 @@
 ``cbfssm_tpu/outputs/summary.py``): copies the invoking script into the
 output directory and writes per-run / mean / std RMSE to summary.txt,
 plus per-run predictive NLL and 95%-band coverage when the runs produced
-calibration stats; and ``serial_reproduction``, the multi-iteration
-loop of the system-identification drivers. ``vmapped_reproduction``
-(all seeds as one program) waits for the multi-seed trainer, ROADMAP
-A4.1."""
+calibration stats; ``serial_reproduction``, the multi-iteration loop of
+the system-identification drivers, and ``vmapped_reproduction``, the
+same flow with all seeds trained as one lane-batched program."""
 
 from __future__ import annotations
 
@@ -55,10 +54,6 @@ class OutputSummary:
                 f.write("\n95%%-band coverage mean: %f\n" % np.mean(cov))
 
 
-VMAP_SEEDS_NOT_PORTED = ("vmap_seeds=True (all seeds as one multi-seed program) is not "
-                         "ported yet: it waits for the multi-seed trainer, ROADMAP A4.1")
-
-
 def serial_reproduction(make_model, make_ds, root, iterations, epochs_fn, metrics=False):
     """The serial multi-iteration flow of the run drivers: per iteration
     a dataset (``make_ds()``), a model (``make_model()``),
@@ -82,6 +77,33 @@ def serial_reproduction(make_model, make_ds, root, iterations, epochs_fn, metric
                           metrics_path=out_dir + "/metrics.jsonl" if metrics else None)
         trainer.train(ds, epochs_fn(ds))
         outputs.set_trainer(trainer)
+        outputs.create_all()
+        summary.add_outputs(outputs)
+    summary.write_summary()
+    return summary
+
+
+def vmapped_reproduction(model, ds, root, iterations, epochs, outputs_cls=None,
+                         metrics_path=None):
+    """The multi-iteration flow with all seeds trained as one
+    lane-batched program: ``MultiSeedTrainer`` (seeds 0 .. iterations-1
+    as lanes), then per seed ``Outputs`` into ``root`` (one iteration)
+    or ``root/run_<it>`` from the seed's view, then summary.txt: the
+    artifact layout of :func:`serial_reproduction`. The drivers'
+    ``vmap_seeds=True``."""
+    from cbfssm_tpu_torch.outputs.outputs import Outputs
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    outputs_cls = outputs_cls or Outputs
+    summary = OutputSummary(root)
+    trainer = MultiSeedTrainer(model, root, n_seeds=iterations, metrics_path=metrics_path)
+    trainer.train(ds, epochs)
+    for it in range(iterations):
+        out_dir = root if iterations == 1 else root + "/run_%d" % it
+        outputs = outputs_cls(out_dir)
+        outputs.set_ds(ds)
+        outputs.set_model(model, root)
+        outputs.set_trainer(trainer.seed_view(it))
         outputs.create_all()
         summary.add_outputs(outputs)
     summary.write_summary()

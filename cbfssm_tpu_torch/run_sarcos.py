@@ -11,7 +11,7 @@ import numpy as np
 
 from cbfssm_tpu_torch.data import Sarcos
 from cbfssm_tpu_torch.models import CBFSSM
-from cbfssm_tpu_torch.outputs.summary import VMAP_SEEDS_NOT_PORTED, serial_reproduction
+from cbfssm_tpu_torch.outputs.summary import serial_reproduction, vmapped_reproduction
 
 root_dir = "run_output/sarcos"
 iterations = 5
@@ -52,10 +52,13 @@ def main(
 ):
     """The defaults reproduce the reference experiment; the keyword
     overrides let tests run the whole flow on fixtures (``device="cpu"``
-    for the CPU)."""
-    if vmap_seeds:
-        raise NotImplementedError(VMAP_SEEDS_NOT_PORTED)
+    for the CPU). ``vmap_seeds=True`` trains the ``iterations`` seeds as
+    one lane-batched program (``vmapped_reproduction``; the same artifact
+    layout)."""
     config = dict(model_config, **(config_overrides or {}))
+    if vmap_seeds:
+        ds = Sarcos(seq_len, seq_stride, data_dir=data_dir)
+        return vmapped_reproduction(CBFSSM(config, device=device), ds, root, iterations, epochs)
     return serial_reproduction(lambda: CBFSSM(config, device=device),
                                lambda: Sarcos(seq_len, seq_stride, data_dir=data_dir), root,
                                iterations, lambda ds: epochs)

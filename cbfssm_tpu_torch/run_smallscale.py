@@ -16,7 +16,7 @@ import numpy as np
 
 from cbfssm_tpu_torch.data import Actuator, Ballbeam, Drive, Dryer, Furnace
 from cbfssm_tpu_torch.models import CBFSSM
-from cbfssm_tpu_torch.outputs.summary import VMAP_SEEDS_NOT_PORTED, serial_reproduction
+from cbfssm_tpu_torch.outputs.summary import serial_reproduction, vmapped_reproduction
 
 # Choose Tasks: (dataset, name, lambda_1, k_factor)
 datasets = [
@@ -67,13 +67,19 @@ def main(
 ):
     """The defaults reproduce the reference experiment; the keyword
     overrides let tests run the whole flow on fixtures (``device="cpu"``
-    for the CPU)."""
-    if vmap_seeds:
-        raise NotImplementedError(VMAP_SEEDS_NOT_PORTED)
+    for the CPU). ``vmap_seeds=True`` trains each task's ``iterations``
+    seeds as one lane-batched program (``vmapped_reproduction``; the same
+    artifact layout)."""
     for task_nr in task_list if task_list is not None else tasks:
         ds_cls, name = datasets[task_nr][:2]
         config = model_config(task_nr)
         config.update(config_overrides or {})
+        if vmap_seeds:
+            ds = ds_cls(seq_len, seq_stride, data_dir=data_dir)
+            epochs = math.ceil(train_iterations / ds.train_in_batch.shape[0])
+            vmapped_reproduction(CBFSSM(config, device=device), ds, root + "/" + name,
+                                 iterations, epochs)
+            continue
         serial_reproduction(
             lambda config=config: CBFSSM(config, device=device),
             lambda ds_cls=ds_cls: ds_cls(seq_len, seq_stride, data_dir=data_dir),

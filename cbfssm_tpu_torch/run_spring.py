@@ -14,7 +14,7 @@ import numpy as np
 
 from cbfssm_tpu_torch.data import SpringNonlinear
 from cbfssm_tpu_torch.models import CBFSSM
-from cbfssm_tpu_torch.outputs.summary import VMAP_SEEDS_NOT_PORTED, serial_reproduction
+from cbfssm_tpu_torch.outputs.summary import serial_reproduction, vmapped_reproduction
 
 root_dir = "run_output/spring"
 iterations = 5  # overridable from the command line (see __main__)
@@ -55,10 +55,15 @@ def main(
     device="cuda",
 ):
     """Each iteration trains for ``ceil(train_iterations / windows)``
-    epochs (``device="cpu"`` for the CPU)."""
-    if vmap_seeds:
-        raise NotImplementedError(VMAP_SEEDS_NOT_PORTED)
+    epochs (``device="cpu"`` for the CPU). ``vmap_seeds=True`` trains
+    the ``iterations`` seeds as one lane-batched program
+    (``vmapped_reproduction``; the same artifact layout)."""
     config = dict(model_config, **(config_overrides or {}))
+    if vmap_seeds:
+        ds = SpringNonlinear(seq_len, seq_stride, data_dir=data_dir)
+        epochs = math.ceil(train_iterations / ds.train_in_batch.shape[0])
+        return vmapped_reproduction(CBFSSM(config, device=device), ds, root, iterations,
+                                    epochs, metrics_path=root + "/metrics.jsonl")
     return serial_reproduction(
         lambda: CBFSSM(config, device=device),
         lambda: SpringNonlinear(seq_len, seq_stride, data_dir=data_dir), root, iterations,

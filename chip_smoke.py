@@ -88,13 +88,43 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    batch with fixed noise (float64 loss rtol 1e-10, every gradient leaf
    rtol 1e-6, predict outputs rtol 1e-8; float32 against float64 on the
    loss terms at rtol 1e-3), the step time, peak memory and one
-   profiled step.
+   profiled step;
+8. lanes (multi-seed and sweep training on the lane kernels): (a) both
+   lane kernels (``gp_predict_lanes``, ``gp_predict_residuals_lanes``)
+   against their plain versions over the lane axis at ``LANE_SHAPES``
+   (Sarcos recognition L 5 N 1,800 DI 21 D 7, Sarcos forward L 5 N 100
+   D 14, RoboMove recognition L 4 N 12,800 DI 6 D 2 and forward L 4
+   N 1,600 DI 6 D 4 as the sweep runs them, a ragged one) in both
+   dtypes at phase 3's tolerances, one lane bitwise against the
+   single-lane entry, each timed by graph replay beside L single
+   launches and its bound; (b) ``vmapped_reproduction`` of the Sarcos
+   CBFSSM at the full width of run_sarcos.py, 5 seeds as lanes, float32,
+   'pallas', on phase 7's synthetic file with the epoch cut to 16 steps:
+   each step launches ``gp_predict_residuals_lanes`` 281 times and no
+   single kernel, the test loss ``gp_predict_lanes`` 281 times a batch;
+   run_0..run_4 and summary.txt are written (without matplotlib the
+   plots are skipped); (e) the median vmapped step against 5 x phase 7's
+   single-seed step, peak memory and one profiled step; (c) in float64
+   on the card, each lane's loss (rtol 1e-10) and gradients (rtol 1e-6,
+   atol 1e-8 x the leaf's largest entry) against the single model on
+   that lane's params, batch and noise, for the trained Sarcos lanes,
+   4 lanes of the RoboMove CBFSSM ('pallas': its recognition GP at
+   L 4 x 12,800 rows, the sweep's shape) and 3 lanes of the RoboMove
+   CBFSSMHALF ('rnn'); (d) ``SweepTrainer`` on the RoboMove CBFSSM at
+   full width over 4 values of k_factor, 4 steps: 4 x 399 residual and
+   3 x 399 value lane launches, distinct lanes, unchanged hypers,
+   sweep_best.json; (f) the host cost of the value path's dispatch:
+   B = 1 requests of the RoboMove CBFSSM with plain calls going straight
+   to the kernel wrapper (as they do) against every call forced through
+   ``FusedPredictValue``, alternated, and 2,000 bare calls each way.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
-four and phase 7's two (``voliro``: training, test loss and outputs;
-``training_sarcos``): each sets the launch counts to 0 just before it
-and reads them just after, and the kernels line lists them by path
-(``launches_by_path``; ``launches`` is their sum).
+four, phase 7's two (``voliro``: training, test loss and outputs;
+``training_sarcos``) and phase 8's two (``lanes``: the Sarcos seeds'
+training, test loss and outputs; ``sweep``): each sets the launch counts
+(the lane kernels' included) to 0 just before it and reads them just
+after, and the kernels line lists them by path (``launches_by_path``;
+``launches`` is their sum).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card, and the line before that lists the kernels with their
@@ -103,7 +133,10 @@ recognition shape (float32, N = 12,800), ``ms_n1600`` the same at the
 forward shape (N = 1,600), each beside its bound (``bound_ms``,
 ``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure,
 ``device_ms_f64`` has the same device times in float64, and
-``model_shapes`` the figures of phase 7's four shapes.
+``model_shapes`` the figures of phase 7's four shapes. The two lane
+kernels follow, with their figures at the Sarcos recognition shape of
+phase 8 (``ms_singles``: the same work as L single launches) and
+``lane_shapes`` for all five.
 """
 
 from __future__ import annotations
@@ -137,6 +170,20 @@ TIMED_N = (12800, 1600)  # the RoboMove shapes, timed by graph replay
 # recognition and forward GPs
 MODEL_WIDTHS = ((12, 3), (19, 6), (21, 7), (21, 14))
 SARCOS_STEPS = 16  # Adam steps of phase 7's Sarcos epoch (a full one is 120)
+SARCOS_SEEDS = 5  # run_sarcos.iterations: phase 8's lanes
+# phase 8's lane-kernel shapes (L, N, M, DI, D): Sarcos recognition and
+# forward at 5 lanes, RoboMove recognition and forward at 4 (the sweep),
+# a ragged one
+LANE_SHAPES = {
+    "sarcos recognition": (5, 1800, 100, 21, 7),
+    "sarcos forward": (5, 100, 100, 21, 14),
+    "robomove recognition": (4, 12800, 100, 6, 2),
+    "robomove forward": (4, 1600, 100, 6, 4),
+    "ragged": (3, 37, 11, 5, 3),
+}
+SWEEP_K_FACTOR = (1.0, 10.0, 50.0, 200.0)  # phase 8's RoboMove sweep
+SWEEP_STEPS = 4
+STEP_MS = {}  # median train steps, by path, for phase 8's comparison
 
 
 def fail(msg: str) -> None:
@@ -539,6 +586,7 @@ def report_steps(label: str, run, card: str):
           flush=True)
     if DEVICE == "cuda":
         profile_step(tr, args, label, step_ms, card)
+    return step_ms
 
 
 def loss_and_grads(model, params, u, y, noise):
@@ -996,7 +1044,7 @@ def phase_sarcos(card: str, data_dir: str):
                     f32_vs_f64=True)
     predict_parity(make_model, params, ds.test_in_batch[:8], ds.test_out_batch[:8], "Sarcos",
                    seq_len=seq_len)
-    report_steps(f"Sarcos gp_impl=pallas B={batch} float32", run, card)
+    STEP_MS["sarcos"] = report_steps(f"Sarcos gp_impl=pallas B={batch} float32", run, card)
     return launches, residual_launches
 
 
@@ -1014,6 +1062,412 @@ def phase_voliro_sarcos(card: str):
         paths = {"voliro": phase_voliro(card, data_dir),
                  "training_sarcos": phase_sarcos(card, data_dir)}
     return model_kernels, paths
+
+
+def phase_lane_kernels():
+    """(a) Both lane kernels against their plain versions over the lane
+    axis at ``LANE_SHAPES``, in float32 (rtol 2e-5, atol 1e-5) and
+    float64 (rtol 1e-10, atol 1e-12); one lane against the single-lane
+    entry point (bitwise: the same launch); each timed by graph replay
+    beside L single launches of the same work, its bound (L times one
+    lane's) and 20 eager calls of its plain version. Returns {kernel:
+    {shape: figures}}."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.utils.kernel_timing import graph_replay_ms, kernel_inputs
+
+    def residuals_plain(*args):
+        mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
+        return mean, var, kmn, w
+
+    tol = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
+    kernels = {
+        "gp_predict_lanes": (fp.fused_predict_lanes, fp.fused_predict_plain,
+                             fp._fused_predict_value, False),
+        "gp_predict_residuals_lanes": (fp.fused_predict_residuals_lanes, residuals_plain,
+                                       fp.fused_predict_residuals, True),
+    }
+    out = {name: {} for name in kernels}
+    rng = np.random.default_rng(3)
+    for path, (lanes, n, m, di, d) in LANE_SHAPES.items():
+        for dtype, (rtol, atol) in tol.items():
+            per_lane = [kernel_inputs(rng, n, m, di, d, dtype, DEVICE) for _ in range(lanes)]
+            args = [torch.stack(ts) for ts in zip(*per_lane)]
+            dt = str(dtype)[6:]
+            for name, (kernel, plain, single, residuals) in kernels.items():
+                got = kernel(*args)
+                sync()
+                want = plain(*args)
+                err = 0.0
+                for g, w in zip(got, want):
+                    e = (g - w).abs()
+                    if bool((e > atol + rtol * w.abs()).any()):
+                        fail(f"{name} {path} {dt}: max abs err {float(e.max()):.3e} outside "
+                             f"rtol {rtol} atol {atol}")
+                    err = max(err, float(e.max()))
+                one = kernel(*(a[:1] for a in args))
+                ref = single(*per_lane[0])
+                sync()
+                if not all(torch.equal(a[0], b) for a, b in zip(one, ref)):
+                    fail(f"{name} {path} {dt}: one lane differs from the single-lane entry")
+                dev_ms = graph_replay_ms(lambda: kernel(*args))
+                singles_ms = graph_replay_ms(lambda: [single(*a) for a in per_lane])
+                plain_ms = cuda_ms(lambda: plain(*args), 20)
+                one_ms, bound_by = bound(n, m, di, d, dt, residuals)
+                fig = out[name].setdefault(path, {"shape": f"L={lanes} N={n} M={m} DI={di} "
+                                                           f"D={d}"})
+                if dtype == torch.float32:
+                    fig.update(ms=dev_ms, ms_singles=singles_ms, plain_ms=plain_ms,
+                               bound_ms=lanes * one_ms, bound_by=bound_by, max_abs_err=err)
+                else:
+                    fig.update(ms_f64=dev_ms, ms_singles_f64=singles_ms,
+                               plain_ms_f64=plain_ms, bound_ms_f64=lanes * one_ms)
+                print(f"{name} {dt} {path} L={lanes} N={n} M={m} DI={di} D={d}: ok (max abs "
+                      f"err {err:.3e}; one lane = the single-lane entry); device {dev_ms:.5f} "
+                      f"ms (graph replay) vs {lanes} single launches {singles_ms:.5f} ms, bound "
+                      f"{lanes * one_ms:.5f} ms ({bound_by}), plain {plain_ms:.4f} ms",
+                      flush=True)
+    return out
+
+
+def lane_parity(make_model, stacked, lanes: int, ds, batch: int, seq_len: int, where: str):
+    """(c) In float64 on the card: lane l of the lane-batched loss (lane
+    kernels) and its gradients against the single model's loss and
+    gradients of lane l's params (single kernels), each lane on its own
+    batch and noise: loss rtol 1e-10, each leaf rtol 1e-6 with atol 1e-8
+    times the leaf's largest entry."""
+    import tempfile
+
+    import torch
+
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    model = make_model("float64", "pallas")
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    u = torch.as_tensor(ds.train_in_batch[:lanes * batch], **kw).reshape(
+        (lanes, batch) + ds.train_in_batch.shape[1:])
+    y = torch.as_tensor(ds.train_out_batch[:lanes * batch], **kw).reshape(
+        (lanes, batch) + ds.train_out_batch.shape[1:])
+    w = torch.ones((lanes, batch), **kw)
+    noises = [model.draw_noise(torch.Generator(DEVICE).manual_seed(40 + lane), seq_len, batch)
+              for lane in range(lanes)]
+    params = stacked.to(torch.float64)
+    leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
+        ms = MultiSeedTrainer(model, model_dir, n_seeds=lanes)
+        losses = ms.lane_losses(params.with_tensors(leaves), u, y, w, noises)
+    losses.sum().backward()
+    worst_loss, worst_grad = 0.0, 0.0
+    for lane in range(lanes):
+        single = [t[lane].detach().clone().requires_grad_(True) for t in params.tensors()]
+        loss, _ = model.loss(params.with_tensors(single), u[lane], y[lane], None, True, w[lane],
+                             noises[lane])
+        grads = torch.autograd.grad(loss, single)
+        got, want = float(losses[lane].detach()), float(loss.detach())
+        rel = abs(got - want) / abs(want)
+        if rel > 1e-10:
+            fail(f"lanes {where}: float64 loss of lane {lane}: {got!r} vs the single model's "
+                 f"{want!r}")
+        worst_loss = max(worst_loss, rel)
+        for k, (leaf, g) in enumerate(zip(leaves, grads)):
+            scale = float(g.abs().max())
+            err = (leaf.grad[lane] - g).abs()
+            if bool((err > 1e-6 * g.abs() + 1e-8 * scale).any()):
+                fail(f"lanes {where}: float64 gradient of leaf {k}, lane {lane}: max abs err "
+                     f"{float(err.max()):.3e}, largest entry {scale:.3e}")
+            worst_grad = max(worst_grad, float(err.max()) / max(scale, 1e-300))
+    print(f"lane parity {where}: {lanes} lanes x {len(leaves)} leaves, float64, lane-batched "
+          f"vs single model: losses within {worst_loss:.3e} (rtol 1e-10), gradients within "
+          f"{worst_grad:.3e} of each leaf's largest entry (rtol 1e-6)", flush=True)
+
+
+def phase_sarcos_seeds(card: str, data_dir: str):
+    """(b) ``vmapped_reproduction`` of the Sarcos CBFSSM at the full width
+    of run_sarcos.py, float32, 'pallas', 5 seeds as lanes, one epoch cut
+    to 16 steps as phase 7 cuts it, then each seed's Outputs into
+    run_i/ and summary.txt. Each step launches
+    ``gp_predict_residuals_lanes`` 281 times and no single kernel; each
+    test batch ``gp_predict_lanes`` 281 times. (e) The median step
+    against 5 x phase 7's single-seed step, peak memory, and one profiled
+    step. (c) float64 lane parity. Returns the launches of the path and
+    the trained stacked params."""
+    import importlib.util
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch import run_sarcos
+    from cbfssm_tpu_torch.data import Sarcos
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.outputs import Outputs
+    from cbfssm_tpu_torch.outputs.summary import vmapped_reproduction
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    def make_model(dtype, impl):
+        return CBFSSM(dict(run_sarcos.model_config, dtype=dtype, gp_impl=impl), device=DEVICE)
+
+    def counts():
+        return (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
+                fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
+
+    seq_len, batch = run_sarcos.seq_len, run_sarcos.model_config["batch_size"]
+    per_batch = 2 * run_sarcos.model_config["recog_len"] + seq_len - 1
+    ds = Sarcos(seq_len, run_sarcos.seq_stride, data_dir=data_dir)
+    ds.train_in_batch = ds.train_in_batch[:SARCOS_STEPS * batch]
+    ds.train_out_batch = ds.train_out_batch[:SARCOS_STEPS * batch]
+    test_batches = -(-ds.test_in_batch.shape[0] // batch)
+    steps, evals, box = [], [], {}
+    step_fn, eval_fn = MultiSeedTrainer.train_step, MultiSeedTrainer._epoch_eval
+
+    def timed_step(self, *args):
+        before = counts()
+        t0 = time.perf_counter()
+        out = step_fn(self, *args)
+        sync()
+        steps.append((1e3 * (time.perf_counter() - t0),
+                      tuple(a - b for a, b in zip(counts(), before))))
+        box["trainer"], box["args"] = self, args
+        return out
+
+    def counted_eval(self, *args):
+        before = counts()
+        out = eval_fn(self, *args)
+        evals.append(tuple(a - b for a, b in zip(counts(), before)))
+        return out
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    saved = Outputs.training_stats, Outputs.prediction
+    MultiSeedTrainer.train_step, MultiSeedTrainer._epoch_eval = timed_step, counted_eval
+    if not plots:  # the card's machine has no matplotlib: the plots are skipped here only
+        Outputs.training_stats = Outputs.prediction = lambda self, *a: None
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+            sync()
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
+            fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+            t0 = time.perf_counter()
+            summary = vmapped_reproduction(make_model("float32", "pallas"), ds, root,
+                                           SARCOS_SEEDS, 1)
+            sync()
+            run_s = time.perf_counter() - t0
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+            for it in range(SARCOS_SEEDS):
+                for f in ("mse.txt", "calibration.txt", "var_dump.txt"):
+                    if os.path.getsize(f"{root}/run_{it}/{f}") == 0:
+                        fail(f"lanes Sarcos: run_{it}/{f} is empty")
+            text = open(f"{root}/summary.txt").read()
+    finally:
+        MultiSeedTrainer.train_step, MultiSeedTrainer._epoch_eval = step_fn, eval_fn
+        Outputs.training_stats, Outputs.prediction = saved
+    trainer = box["trainer"]
+    train = np.stack(trainer.train_all)
+    if not (np.isfinite(train).all() and np.isfinite(np.stack(trainer.test_all)).all()):
+        fail(f"lanes Sarcos: non-finite losses {trainer.train_all} / {trainer.test_all}")
+    if len(np.unique(train[-1])) != SARCOS_SEEDS:
+        fail(f"lanes Sarcos: the seeds' losses are not all different: {train[-1]}")
+    rmse = np.asarray(summary.rmse_all)
+    if rmse.shape != (SARCOS_SEEDS,) or not np.isfinite(rmse).all() or "Mean" not in text:
+        fail(f"lanes Sarcos: summary RMSE {rmse} / summary.txt {text[:80]!r}")
+    if len(steps) != SARCOS_STEPS or len(evals) != 1:
+        fail(f"lanes Sarcos: {len(steps)} steps and {len(evals)} evaluations, want "
+             f"{SARCOS_STEPS} and 1")
+    for k, (_, c) in enumerate(steps):
+        if c != (0, 0, 0, per_batch):
+            fail(f"lanes Sarcos: step {k} launched (gp_predict, gp_predict_residuals, "
+                 f"gp_predict_lanes, gp_predict_residuals_lanes) = {c}, want "
+                 f"(0, 0, 0, {per_batch})")
+    if evals[0] != (0, 0, test_batches * per_batch, 0):
+        fail(f"lanes Sarcos: the test loss launched {evals[0]}, want (0, 0, "
+             f"{test_batches} x {per_batch}, 0)")
+    print(f"lanes Sarcos: vmapped_reproduction, {SARCOS_SEEDS} seeds as lanes, 1 epoch of "
+          f"{SARCOS_STEPS} steps + {test_batches} test batches, then {SARCOS_SEEDS} x Outputs, "
+          f"in {run_s:.2f} s; train losses {train[-1].tolist()}; RMSE {rmse.tolist()}; each "
+          f"step {per_batch} gp_predict_residuals_lanes and 0 single launches, the test loss "
+          f"{evals[0][2]} = {test_batches} x {per_batch} gp_predict_lanes; Outputs "
+          f"{launches[0]} gp_predict; run_0..run_{SARCOS_SEEDS - 1} and summary.txt written"
+          + ("" if plots else " (plots skipped: matplotlib is not installed here)"),
+          flush=True)
+    step_ms = statistics.median(t for t, _ in steps[1:])
+    serial = STEP_MS.get("sarcos")
+    print(f"train step lanes Sarcos ({SARCOS_SEEDS} seeds, B={batch} each, float32): median of "
+          f"steps 2-{len(steps)} {step_ms:.2f} ms (step 1 {steps[0][0]:.2f} ms), against "
+          f"{SARCOS_SEEDS} x the single-seed step {SARCOS_SEEDS * serial:.2f} ms "
+          f"({serial:.2f} ms, phase 7): {SARCOS_SEEDS * serial / step_ms:.2f} x; peak allocated "
+          f"{peak / 2**30:.3f} GiB over the run; {card}", flush=True)
+    if DEVICE == "cuda":
+        profile_step(trainer, box["args"], f"lanes Sarcos {SARCOS_SEEDS} seeds", step_ms, card)
+    lane_parity(make_model, trainer.params.detach(), SARCOS_SEEDS, ds, batch, seq_len, "Sarcos")
+    return launches
+
+
+def phase_sweep(card: str):
+    """(d) ``SweepTrainer`` on the RoboMove CBFSSM at the full width of
+    run_robomove.py (B 32, M 100, S 50), float32, 'pallas', over 4 values
+    of k_factor, one epoch cut to 4 steps (all 3 test batches): the lanes
+    differ, the hypers are unchanged, sweep_best.json is written. Returns
+    the launches of the path."""
+    import json
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.training import SweepTrainer
+
+    ds = robomove()
+    ds.train_in_batch = ds.train_in_batch[:SWEEP_STEPS * BATCH]
+    ds.train_out_batch = ds.train_out_batch[:SWEEP_STEPS * BATCH]
+    grid = np.asarray(SWEEP_K_FACTOR)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
+        sweep = SweepTrainer(CBFSSM, config("float32", "pallas"), {"k_factor": grid},
+                             model_dir, device=DEVICE)
+        step, times = sweep.train_step, []
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        sweep.train_step = timed_step
+        fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
+        fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+        t0 = time.perf_counter()
+        sweep.train(ds, epochs=1)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
+                    fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
+        with open(f"{model_dir}/sweep_best.json") as f:
+            best = json.load(f)
+    final = sweep.train_all[-1]
+    if not np.isfinite(final).all() or len(np.unique(final)) != len(grid):
+        fail(f"sweep: the lanes' losses are not finite and distinct: {final}")
+    hyper = sweep.params.hyper["k_factor"].cpu().numpy()
+    if not np.array_equal(hyper, grid.astype(np.float32)):
+        fail(f"sweep: the k_factor lanes changed: {hyper} vs {grid}")
+    if best != sweep.best_config() or best["k_factor"] not in SWEEP_K_FACTOR:
+        fail(f"sweep: sweep_best.json {best} vs best_config {sweep.best_config()}")
+    want = (0, 0, 3 * STEPS_PER_CHUNK, SWEEP_STEPS * STEPS_PER_CHUNK)
+    if launches != want:
+        fail(f"sweep: launches (gp_predict, gp_predict_residuals, gp_predict_lanes, "
+             f"gp_predict_residuals_lanes) = {launches}, want {want}")
+    print(f"sweep RoboMove CBFSSM: k_factor {list(SWEEP_K_FACTOR)} as {len(grid)} lanes, "
+          f"{SWEEP_STEPS} steps + 3 test batches in {run_s:.2f} s; train losses "
+          f"{final.tolist()}; k_factor lanes unchanged; sweep_best.json {best}; launches "
+          f"{launches[3]} = {SWEEP_STEPS} x {STEPS_PER_CHUNK} gp_predict_residuals_lanes, "
+          f"{launches[2]} = 3 x {STEPS_PER_CHUNK} gp_predict_lanes; median of steps "
+          f"2-{len(times)} {statistics.median(times[1:]):.2f} ms (step 1 {times[0]:.2f} ms); "
+          f"{card}", flush=True)
+    return launches
+
+
+def value_dispatch(card: str):
+    """(f) The host cost of the value path's autograd Function: B = 1
+    ``BucketedPredictor`` requests of the RoboMove CBFSSM (float32,
+    'pallas') with plain calls going straight to the kernel wrapper, as
+    they do, against every call forced through ``FusedPredictValue``
+    (``fused_predict._batched`` patched to answer True), alternated over
+    7 requests each after one warm-up each; then 2,000 back-to-back
+    ``fused_predict`` calls at N 50 M 100 DI 6 D 4 each way."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.serving import BucketedPredictor
+    from cbfssm_tpu_torch.utils.kernel_timing import kernel_inputs
+
+    u_all, y_all = served_windows()
+    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    pred = BucketedPredictor(model, params, SEQ_LEN, buckets=BUCKETS)
+    args = kernel_inputs(np.random.default_rng(5), 50, 100, 6, 4, torch.float32, DEVICE)
+    hooks = {"direct": fp._batched, "Function": lambda _args: True}
+    request_ms, call_us = {k: [] for k in hooks}, {}
+    try:
+        for rep in range(8):
+            for label, hook in hooks.items():
+                fp._batched = hook
+                t0 = time.perf_counter()
+                pred(u_all[:1], y_all[:1])
+                if rep:  # the first request of each is a warm-up
+                    request_ms[label].append(1e3 * (time.perf_counter() - t0))
+        with torch.inference_mode():
+            for label, hook in hooks.items():
+                fp._batched = hook
+                fp.fused_predict(*args)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    fp.fused_predict(*args)
+                sync()
+                call_us[label] = 1e6 * (time.perf_counter() - t0) / 2000
+    finally:
+        fp._batched = hooks["direct"]
+    med = {k: sorted(v)[len(v) // 2] for k, v in request_ms.items()}
+    print(f"value dispatch CBFSSM B=1: median request {med['direct']:.2f} ms with plain calls "
+          f"direct vs {med['Function']:.2f} ms through FusedPredictValue (7 requests each, "
+          f"alternated: {', '.join(f'{t:.2f}' for t in request_ms['direct'])} / "
+          f"{', '.join(f'{t:.2f}' for t in request_ms['Function'])}); per fused_predict call "
+          f"{call_us['direct']:.2f} us vs {call_us['Function']:.2f} us (2,000 calls each); "
+          f"{card}", flush=True)
+
+
+def stacked_init(model, lanes: int):
+    """The params of ``model.init`` from seeds 0..lanes-1, stacked."""
+    import torch
+
+    per_lane = [model.init(torch.Generator(device=DEVICE).manual_seed(lane))
+                for lane in range(lanes)]
+    return per_lane[0].with_tensors([torch.stack(ts) for ts in
+                                     zip(*(p.tensors() for p in per_lane))])
+
+
+def phase_lanes(card: str):
+    """Phase 8: the lane kernels, the Sarcos seeds as lanes, the lane
+    parity of Sarcos, of the RoboMove CBFSSM and of the RoboMove
+    CBFSSMHALF ('rnn'), the RoboMove sweep and the value path's
+    dispatch cost."""
+    import tempfile
+
+    import numpy as np
+
+    from cbfssm_tpu_torch.data import synthetic
+    from cbfssm_tpu_torch.models import CBFSSM, CBFSSMHALF
+
+    lane_kernels = phase_lane_kernels()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as data_dir:
+        synthetic.stage_all(data_dir, seed=0)
+        lanes = phase_sarcos_seeds(card, data_dir)
+
+    def make_cbfssm(dtype, impl):
+        return CBFSSM(config(dtype, impl), device=DEVICE)
+
+    def make_half(dtype, impl):
+        return CBFSSMHALF(config(dtype, impl, var_y=np.asarray([1.0**2] * 2),
+                                 recog_model="rnn"), device=DEVICE)
+
+    ds = robomove()
+    lane_parity(make_cbfssm, stacked_init(make_cbfssm("float64", "pallas"), len(SWEEP_K_FACTOR)),
+                len(SWEEP_K_FACTOR), ds, BATCH, SEQ_LEN, "RoboMove CBFSSM")
+    lane_parity(make_half, stacked_init(make_half("float64", "pallas"), 3), 3, ds, BATCH,
+                SEQ_LEN, "RoboMove CBFSSMHALF rnn")
+    sweep = phase_sweep(card)
+    value_dispatch(card)
+    return lane_kernels, {"lanes": lanes, "sweep": sweep}
 
 
 def main() -> None:
@@ -1038,12 +1492,16 @@ def main() -> None:
     train_launches, residual_launches = timed("5 training", phase_training, card)
     other = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
     model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
+    lane_kernels, lane_paths = timed("8 lanes", phase_lanes, card)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
-    # launches per main path: (gp_predict, gp_predict_residuals)
+    # launches per main path: (gp_predict, gp_predict_residuals,
+    # gp_predict_lanes, gp_predict_residuals_lanes)
     paths = {"serving": (serve_launches, 0), "training": (train_launches, residual_launches),
              **other, **new_paths}
+    paths = {path: counts + (0, 0) for path, counts in paths.items()}
+    paths.update(lane_paths)
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []
@@ -1076,6 +1534,29 @@ def main() -> None:
             "eager_ms": k_ms,
             "device_ms_f64": {f"N={nn}": t[(torch.float64, nn)][0] for nn in TIMED_N},
             "model_shapes": model_kernels[name],
+        })
+    # the lane kernels: figures at the Sarcos recognition shape of phase 8
+    lanes, ln, lm, ldi, ld = LANE_SHAPES["sarcos recognition"]
+    for k, name in enumerate(("gp_predict_lanes", "gp_predict_residuals_lanes"), start=2):
+        by_path = {path: counts[k] for path, counts in paths.items() if counts[k]}
+        fig = lane_kernels[name]["sarcos recognition"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cbfssm_tpu_torch/csrc/gp_predict.cu",
+            "replaces": f"cbfssm_tpu/ops/pallas/gp_predict.py:{(79, 85)[k - 2]} (batched "
+                        "over lanes by jax.vmap)",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(f["max_abs_err"] for f in lane_kernels[name].values()),
+            "ms": fig["ms"],
+            "plain_ms": fig["plain_ms"],
+            "bound_ms": fig["bound_ms"],
+            "bound_by": fig["bound_by"],
+            "library_ms": None,
+            "shape": f"float32 L={lanes} N={ln} M={lm} DI={ldi} D={ld}",
+            "ms_singles": fig["ms_singles"],
+            "lane_shapes": lane_kernels[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

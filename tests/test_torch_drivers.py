@@ -1,9 +1,9 @@
 """The port's run drivers end to end on the CPU: each new driver's
 ``main()`` with ``device="cpu"`` at the tiny sizes of
 tests/test_run_drivers_e2e.py (``FAST``) for one epoch, on fixtures
-staged under the real file names, and its artifacts; the
-system-identification drivers refuse ``vmap_seeds=True`` (the multi-seed
-trainer is ROADMAP A4.1)."""
+staged under the real file names, and its artifacts; and the
+system-identification drivers with ``vmap_seeds=True`` (the seeds as one
+lane-batched program), which write the serial loop's layout."""
 
 import importlib
 import os
@@ -14,6 +14,7 @@ import pytest
 from cbfssm_tpu_torch import run_sarcos, run_smallscale, run_spring, run_voliro
 from cbfssm_tpu_torch.data import DSManager, synthetic
 from tests.test_run_drivers_e2e import FAST
+from tests.test_torch_lanes import one_thread  # noqa: F401 (autouse)
 from tests.test_torch_sysid import stage_sysid
 
 
@@ -81,12 +82,35 @@ def test_run_smallscale_main(sysid_dir, tmp_path):
     rmse(out)
 
 
+VMAP_RUNS = {
+    "run_sarcos": (dict(epochs=1, seq_len=30, seq_stride=300), ""),
+    "run_spring": (dict(train_iterations=1, seq_len=20, seq_stride=100), ""),
+    "run_smallscale": (dict(task_list=[0], train_iterations=1, seq_len=20, seq_stride=25),
+                       "/actuator"),
+}
+
+
 @pytest.mark.parametrize("driver", ["run_sarcos", "run_spring", "run_smallscale"])
-def test_vmap_seeds_is_refused(driver, tmp_path):
+def test_vmap_seeds_runs(driver, sysid_dir, tmp_path):
+    """``vmap_seeds=True`` trains the iterations' seeds as one
+    lane-batched program and writes the serial loop's layout: run_i/
+    with each seed's artifacts, and summary.txt over the seeds."""
     mod = importlib.import_module(f"cbfssm_tpu_torch.{driver}")
-    with pytest.raises(NotImplementedError, match="A4.1"):
-        mod.main(root=str(tmp_path), vmap_seeds=True, device="cpu")
-    assert not os.listdir(tmp_path)
+    kwargs, sub = VMAP_RUNS[driver]
+    root = str(tmp_path / "out")
+    mod.main(root=root, iterations=2, data_dir=sysid_dir, config_overrides=FAST,
+             vmap_seeds=True, device="cpu", **kwargs)
+    out = root + sub
+    want = []
+    for it in range(2):
+        assert_artifacts(f"{out}/run_{it}", ["mse.txt", "var_dump.txt", "predict_test.pdf",
+                                             "calibration.txt", "training_loss.pdf"])
+        want.append(rmse(f"{out}/run_{it}"))
+    assert_artifacts(out, ["best.ckpt", "model.ckpt", "best_seeds.ckpt", "model_seeds.ckpt"])
+    text = open(out + "/summary.txt").read()
+    assert "RMSE" in text
+    for value in want:
+        assert "  %f\n" % value in text
 
 
 def test_drivers_keep_the_reference_configs():

@@ -35,6 +35,7 @@ import cbfssm_tpu_torch.run_voliro, cbfssm_tpu_torch.run_sarcos
 import cbfssm_tpu_torch.run_spring, cbfssm_tpu_torch.run_smallscale
 import cbfssm_tpu_torch.create_datasets.create_robomove
 import cbfssm_tpu_torch.create_datasets.create_spring_nonlinear
+import cbfssm_tpu_torch.training.multiseed, cbfssm_tpu_torch.training.sweep
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu',
