@@ -18,7 +18,13 @@ trains ``Voliro``:
   generators and synthetic raw files.
 - ``cbfssm_tpu_torch.run_*``      — the reproduction drivers.
 - :mod:`cbfssm_tpu_torch.serving` — fixed-shape, bucketed and
-  micro-batched predictors.
+  micro-batched predictors, with checkpoint hot-swap.
+- :mod:`cbfssm_tpu_torch.serving_http` — the stdlib HTTP predictor
+  server (``PredictionServer``).
+- :mod:`cbfssm_tpu_torch.model_store` — ``model_meta.json``: a trained
+  directory rebuilt from disk alone.
+- ``python -m cbfssm_tpu_torch`` — the command line: ``info``,
+  ``reproduce``, ``eval``, ``serve``.
 - :mod:`cbfssm_tpu_torch.convert` — parameters from the JAX package's
   leaves, given as numpy arrays.
 """

@@ -65,10 +65,15 @@ class BaseSSM:
     def __init__(self, config, device="cuda"):
         self.config = as_config(config)
         self.device = torch.device(device)
-        if self.config.dtype not in _DTYPES:
+        # any spelling numpy reads ('float64', np.float64, np.dtype(...))
+        try:
+            dtype_name = np.dtype(self.config.dtype).name
+        except TypeError:
+            dtype_name = None
+        if dtype_name not in _DTYPES:
             raise ValueError(f"dtype must be 'float32' or 'float64', got {self.config.dtype!r}")
-        self.dtype = _DTYPES[self.config.dtype]
-        self.np_dtype = np.dtype(self.config.dtype)
+        self.dtype = _DTYPES[dtype_name]
+        self.np_dtype = np.dtype(dtype_name)
         self.dim_u = int(self.config.dim_u)
         self.dim_y = int(self.config.dim_y)
         self.samples = int(self.config.samples)

@@ -27,6 +27,7 @@ import os
 import numpy as np
 import torch
 
+from cbfssm_tpu_torch import model_store
 from cbfssm_tpu_torch.outputs import calibration as cal
 from cbfssm_tpu_torch.training import checkpoint
 
@@ -83,13 +84,7 @@ class Outputs:
             if self.trainer.params is not None:
                 return self.trainer.params
         if checkpoint.exists(best):
-            template = self.model.init(
-                torch.Generator(device=self.model.device).manual_seed(self.seed)
-            )
-            saved = checkpoint.restore(best, map_location=self.model.device)["params"]
-            return template.with_tensors(
-                [s.to(t.dtype) for s, t in zip(saved, template.tensors(), strict=True)]
-            )
+            return model_store.restore_params(self.model, best, self.seed)
         raise RuntimeError(f"no trained parameters: neither a trainer nor {best} available")
 
     def create_all(self, params=None):

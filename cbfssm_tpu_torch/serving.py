@@ -1,6 +1,6 @@
 """Batch predictors for serving (port of ``CompiledPredictor``,
-``BucketedPredictor``, ``_CoalescingBatcher`` and ``MicroBatcher`` of
-``cbfssm_tpu/serving.py``).
+``BucketedPredictor``, ``_CoalescingBatcher``, ``MicroBatcher`` and
+``validate_params_like`` of ``cbfssm_tpu/serving.py``).
 
 PyTorch runs eagerly, so :class:`CompiledPredictor` is a fixed-shape
 predictor with the JAX class's shape checks and no ahead-of-time
@@ -8,6 +8,15 @@ compile. Random draws come from a ``torch.Generator`` made per call from
 an integer seed; :func:`fold_seed` plays the part of
 ``jax.random.fold_in`` and gives every chunk of a request, and every
 coalesced batch, a generator of its own.
+
+Both predictors hot-swap their checkpoint (``reload_params``): the new
+params are checked against the served ones (:func:`validate_params_like`),
+copied to the predictor's own device, and swapped in as one reference,
+so a batch in flight runs on the old params or the new ones, never a
+mix. :func:`params_to_leaves` / :func:`params_from_leaves` give a params
+tree as the flat list of arrays that the JAX package's
+``jax.tree_util.tree_flatten`` gives for the same model (its layout and
+order), the wire format of ``POST /v1/params``.
 
 ``BucketedPredictor.plan_buckets`` / ``from_histogram`` are not ported:
 their default cost model is a TPU measurement.
@@ -24,7 +33,12 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from cbfssm_tpu_torch import convert
 from cbfssm_tpu_torch.models.base import PredictOutput
+from cbfssm_tpu_torch.models.cbfssm import CBFSSMParams
+from cbfssm_tpu_torch.models.cbfssmhalf import CBFSSMHALFParams
+from cbfssm_tpu_torch.models.prssm import PRSSMParams
+from cbfssm_tpu_torch.models.voliro import VoliroParams
 
 
 def fold_seed(seed: int, index: int) -> int:
@@ -49,6 +63,109 @@ def check_predict_output(model) -> None:
         )
 
 
+# params class -> (to the JAX package's nested numpy tree, back)
+_JAX_TREES = {
+    CBFSSMParams: (convert.cbfssm_params_to_numpy, convert.cbfssm_params_from_numpy),
+    CBFSSMHALFParams: (convert.cbfssmhalf_params_to_numpy,
+                       convert.cbfssmhalf_params_from_numpy),
+    PRSSMParams: (convert.prssm_params_to_numpy, convert.prssm_params_from_numpy),
+    VoliroParams: (convert.voliro_params_to_numpy, convert.voliro_params_from_numpy),
+}
+
+
+def _jax_tree(params):
+    try:
+        to_numpy, _ = _JAX_TREES[type(params)]
+    except KeyError:
+        raise TypeError(f"no JAX leaf order for {type(params).__name__}") from None
+    return to_numpy(params)
+
+
+def _tree_leaves(tree, sort: bool = False) -> list:
+    """The leaves in ``jax.tree_util`` flatten order: a params dataclass
+    (the top level, and each GP's leaves) in field order, which is the
+    converted tree's key order; the flax ``recog`` dicts by sorted key."""
+    if not isinstance(tree, dict):
+        return [tree]
+    keys = sorted(tree) if sort else list(tree)
+    return [leaf for k in keys for leaf in _tree_leaves(tree[k], sort or k == "recog")]
+
+
+def _tree_replace(tree, leaves, sort: bool = False):
+    """``tree`` with its leaves taken in :func:`_tree_leaves` order from
+    the iterator ``leaves``."""
+    if not isinstance(tree, dict):
+        return next(leaves)
+    keys = sorted(tree) if sort else list(tree)
+    out = {k: _tree_replace(tree[k], leaves, sort or k == "recog") for k in keys}
+    return {k: out[k] for k in tree}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def params_to_leaves(params) -> list:
+    """``params`` as host numpy arrays in the layout and order of
+    ``jax.tree_util.tree_leaves`` of the JAX package's params of the
+    same model (the recognition net in flax's layout)."""
+    return [np.asarray(a) for a in _tree_leaves(_jax_tree(params))]
+
+
+def params_from_leaves(template, leaves, context: str = "reload_params"):
+    """Params of ``template``'s structure, device and dtype from
+    :func:`params_to_leaves`-ordered arrays (e.g. a params ``.npz`` the
+    JAX package's ``post_params_npz`` wrote). Raises a ``ValueError``
+    naming the first leaf whose shape or dtype differs from the
+    template's."""
+    want = params_to_leaves(template)
+    if len(leaves) != len(want):
+        raise ValueError(
+            f"{context}: got {len(leaves)} parameter leaves, serving expects {len(want)} — "
+            "wrong model class or config?")
+    arrays = []
+    for i, (o, n) in enumerate(zip(want, leaves)):
+        n = np.asarray(n)
+        if n.shape != o.shape or n.dtype != o.dtype:
+            raise ValueError(
+                f"{context}: leaf {i} is {n.dtype}{list(n.shape)}, serving expects "
+                f"{o.dtype}{list(o.shape)} — wrong checkpoint (different dims/inducing "
+                "points/dtype)?")
+        arrays.append(n)
+    _, from_numpy = _JAX_TREES[type(template)]
+    leaf0 = template.tensors()[0]
+    tree = _tree_replace(_jax_tree(template), iter(arrays))
+    return from_numpy(tree, device=leaf0.device, dtype=leaf0.dtype)
+
+
+def _structure(params):
+    recog = getattr(params, "recog", None)
+    return (type(params).__name__, len(params.tensors()),
+            tuple(recog) if isinstance(recog, dict) else None)
+
+
+def validate_params_like(old, new, context: str = "reload_params"):
+    """Check a replacement params tree against the served one: the same
+    class and leaves (structure), each leaf of the same shape and dtype.
+    Returns the new tree's leaves copied onto the served params' device
+    (the predictor's own, wherever ``new`` lives). A wrong checkpoint
+    fails here with the leaf named."""
+    if type(new) is not type(old) or _structure(new) != _structure(old):
+        got = _structure(new) if hasattr(new, "tensors") else type(new).__name__
+        raise ValueError(
+            f"{context}: parameter tree structure differs from the served one (got {got}, "
+            f"serving {_structure(old)}) — wrong model class or config?")
+    coerced = []
+    for i, (o, n) in enumerate(zip(old.tensors(), new.tensors())):
+        if tuple(n.shape) != tuple(o.shape) or n.dtype != o.dtype:
+            raise ValueError(
+                f"{context}: leaf {i} is {_dtype_name(n.dtype)}{list(n.shape)}, serving "
+                f"expects {_dtype_name(o.dtype)}{list(o.shape)} — wrong checkpoint "
+                "(different dims/inducing points/dtype)?")
+        coerced.append(n.detach().to(device=o.device, copy=True))
+    return old.with_tensors(coerced)
+
+
 class CompiledPredictor:
     """Free-running prediction for one fixed (batch, seq_len) shape.
 
@@ -66,7 +183,17 @@ class CompiledPredictor:
         self.condition = condition
         self.seed = seed
 
+    def reload_params(self, params) -> None:
+        """Hot-swap the served checkpoint: validated
+        (:func:`validate_params_like`), copied to the model's device and
+        assigned as one reference, so a concurrent call sees the old or
+        the new params, never a mix."""
+        self.params = validate_params_like(self.params, params)
+
     def __call__(self, u, y, seed: int | None = None):
+        return self._run(self.params, u, y, seed)
+
+    def _run(self, params, u, y, seed):
         model = self.model
         kw = dict(dtype=model.dtype, device=model.device)
         u = torch.as_tensor(u, **kw)
@@ -80,7 +207,7 @@ class CompiledPredictor:
         generator = torch.Generator(device=model.device)
         generator.manual_seed(self.seed if seed is None else int(seed))
         with torch.inference_mode():
-            return model.predict(self.params, u, y, generator, condition=self.condition)
+            return model.predict(params, u, y, generator, condition=self.condition)
 
 
 class BucketedPredictor:
@@ -113,16 +240,27 @@ class BucketedPredictor:
             for b in self.buckets
         }
 
-    def _one_batch(self, u, y, seed):
-        """Pad one <= top-bucket request up to its bucket, predict, and
-        slice the real rows back out (as host arrays)."""
+    def reload_params(self, params) -> None:
+        """Hot-swap the served checkpoint of every bucket. Validated once
+        (an invalid one changes nothing); a request reads the params
+        reference once, so all its chunks run on one checkpoint."""
+        new = validate_params_like(self.params, params)
+        self.params = new
+        for pred in self._preds.values():
+            pred.params = new
+
+    def _one_batch(self, u, y, seed, params=None):
+        """Pad one <= top-bucket request up to its bucket, predict with
+        ``params`` (default: the served ones), and slice the real rows
+        back out (as host arrays)."""
         n = u.shape[0]
         bucket = next(b for b in self.buckets if b >= n)
         pad = bucket - n
         if pad:
             u = np.concatenate([u, np.zeros((pad,) + u.shape[1:], u.dtype)])
             y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
-        out = self._preds[bucket](u, y, seed).map(lambda a: a.cpu().numpy())
+        params = self.params if params is None else params
+        out = self._preds[bucket]._run(params, u, y, seed).map(lambda a: a.cpu().numpy())
         if pad:
             out = out.map(lambda a: a[:n] if a.ndim else a)
         return out
@@ -143,8 +281,9 @@ class BucketedPredictor:
             raise ValueError("need at least one sequence per request")
         top = self.buckets[-1]
         base = self.seed if seed is None else int(seed)
+        params = self.params  # one reference for every chunk (reload_params)
         outs = [
-            self._one_batch(u[i:i + top], y[i:i + top], fold_seed(base, i // top))
+            self._one_batch(u[i:i + top], y[i:i + top], fold_seed(base, i // top), params)
             for i in range(0, u.shape[0], top)
         ]
         out = outs[0]

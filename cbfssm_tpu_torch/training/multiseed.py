@@ -41,11 +41,12 @@ params and optimizer (resume with ``retrain=True``); ``best.ckpt`` /
 ``model.ckpt`` hold the best lane's unstacked tree in the single-model
 ``Trainer``'s format, so ``Trainer.restore`` and ``Outputs`` load them.
 
-Not ported: device meshes (``mesh``, ROADMAP A6.1), fused multi-epoch
-dispatch (``epochs_per_dispatch`` other than 'auto', an A4.1 follow-up),
-both rejected with a ``ValueError``; and the model directory's
-self-description for the CLI (``model_store`` snapshots, A4.2), which is
-not written.
+The directory describes itself as a ``Trainer``'s does
+(``model_meta.json`` at ``__init__``, the dataset recipe at ``train``),
+so ``load_trained_model`` and the CLI reopen the best lane from
+``best.ckpt``. Not ported: device meshes (``mesh``, ROADMAP A6.1) and
+fused multi-epoch dispatch (``epochs_per_dispatch`` other than 'auto',
+an A4.1 follow-up), both rejected with a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ import torch
 from torch.func import vmap
 
 from cbfssm_tpu_torch.training import checkpoint
-from cbfssm_tpu_torch.training.trainer import epoch_indices
+from cbfssm_tpu_torch.training.trainer import epoch_indices, stamp_dataset, stamp_model_meta
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger
 
 # Stacked [n_seeds, ...] checkpoints get their own names, so that a
@@ -207,6 +208,7 @@ class MultiSeedTrainer:
         self._frozen = int(getattr(model, "frozen_leaves", 0))
         self._device_data = {}
         os.makedirs(model_dir, exist_ok=True)
+        stamp_model_meta(model_dir, model, seed)
 
     # --- state -----------------------------------------------------------
 
@@ -368,6 +370,7 @@ class MultiSeedTrainer:
 
     def train(self, ds, epochs: int, retrain: bool = False):
         print(f"\nTraining {self.n_seeds} seeds (vmapped)...\n")
+        stamp_dataset(self.model_dir, ds)
         self.init_state(retrain)
         self._device_data = {}
         batch_size = int(self.model.config.batch_size)

@@ -18,8 +18,10 @@ trainer trains only the model's leaves, so the values cannot drift.
 Only loss-time fields are sweepable. Fields read at ``init`` (zeta_*,
 gp_var, var_x, ...) or structural fields (shapes, dtypes, recog_len)
 select different programs, not different values; sweep those the
-pedestrian way. Not ported: ``fold_config_updates`` of the model
-directory's snapshot (``model_store``, ROADMAP A4.2).
+pedestrian way. After training, the winning point's values are folded
+into the directory's ``model_meta.json``
+(:func:`~cbfssm_tpu_torch.model_store.fold_config_updates`), so the
+rebuilt model is the one whose params ``best.ckpt`` holds.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from cbfssm_tpu_torch import model_store
 from cbfssm_tpu_torch.config import as_config
 from cbfssm_tpu_torch.training.multiseed import MultiSeedTrainer
 
@@ -219,8 +222,11 @@ class SweepTrainer(MultiSeedTrainer):
 
     def train(self, ds, epochs: int, retrain: bool = False):
         super().train(ds, epochs, retrain)
+        best = self.best_config()
         with open(os.path.join(self.model_dir, "sweep_best.json"), "w") as f:
-            json.dump(self.best_config(), f, indent=2)
+            json.dump(best, f, indent=2)
+        model_store.fold_config_updates(self.model_dir, best,
+                                        note="sweep best point (by train loss)")
 
     @staticmethod
     def product_grid(sweep: dict, seeds_per_point: int) -> dict:

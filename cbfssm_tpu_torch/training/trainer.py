@@ -11,9 +11,13 @@ The JAX package runs an epoch (or a block of epochs) as one device
 program; its block dispatch is pinned to give the losses of per-epoch
 dispatch, so this port runs epoch by epoch, in eager PyTorch, and gets
 the same numbers (the model accepts only ``epochs_per_dispatch='auto'``).
-Not ported: device meshes (``mesh``, ROADMAP A6.1), the profiler trace
-(``profile_dir``, A6.3), and the model directory's self-description for
-the CLI (``model_store.save_model_meta`` / ``record_dataset``, A4.2).
+The model directory describes itself: ``__init__`` writes
+``model_meta.json`` (:func:`~cbfssm_tpu_torch.model_store.save_model_meta`)
+and ``train`` stamps the dataset's recipe into it
+(:func:`~cbfssm_tpu_torch.model_store.record_dataset`), so
+``python -m cbfssm_tpu_torch eval | serve <dir>`` rebuilds the model
+without the script that trained it. Not ported: device meshes
+(``mesh``, ROADMAP A6.1) and the profiler trace (``profile_dir``, A6.3).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from cbfssm_tpu_torch import model_store
 from cbfssm_tpu_torch.training import checkpoint
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger
 
@@ -53,6 +58,26 @@ def batch_seed(seed: int, epoch: int, split: int, i: int) -> int:
     key is (the numbers drawn differ: Philox, not threefry)."""
     entropy = [seed + 1, epoch, split, i]
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
+
+
+def stamp_model_meta(model_dir, model, seed) -> None:
+    """``model_store.save_model_meta``, best-effort: a model the snapshot
+    cannot describe must never break training (the directory then only
+    cannot be reopened by ``eval`` / ``serve``)."""
+    try:
+        model_store.save_model_meta(model_dir, model, seed=seed)
+    except Exception as exc:
+        print(f"model_meta snapshot failed ({exc}); {model_dir} will not be reloadable",
+              file=sys.stderr)
+
+
+def stamp_dataset(model_dir, ds) -> None:
+    """``model_store.record_dataset``, best-effort: a directory without a
+    snapshot, or an unusual dataset, must not break training."""
+    try:
+        model_store.record_dataset(model_dir, ds)
+    except Exception:
+        pass
 
 
 class Trainer:
@@ -93,6 +118,7 @@ class Trainer:
         self._noise_fn = noise_fn
         self._device_data = {}
         os.makedirs(model_dir, exist_ok=True)
+        stamp_model_meta(model_dir, model, seed)
 
     # --- state -----------------------------------------------------------
 
@@ -234,6 +260,7 @@ class Trainer:
 
     def train(self, ds, epochs: int, retrain: bool = False):
         print("\nTraining...\n")
+        stamp_dataset(self.model_dir, ds)
         self.init_state(retrain)
         self._device_data = {}
         batch_size = int(self.model.config.batch_size)

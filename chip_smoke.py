@@ -116,14 +116,33 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    sweep_best.json; (f) the host cost of the value path's dispatch:
    B = 1 requests of the RoboMove CBFSSM with plain calls going straight
    to the kernel wrapper (as they do) against every call forced through
-   ``FusedPredictValue``, alternated, and 2,000 bare calls each way.
+   ``FusedPredictValue``, alternated, and 2,000 bare calls each way;
+9. the CLI and the HTTP server, at the RoboMove phase-0 width, float32:
+   (a) ``cbfssm_tpu_torch.__main__.main(["reproduce", "robomove",
+   "--epochs", "1", "--root", DIR])`` in this process: both curriculum
+   phases, one full epoch each (16 x 399 ``gp_predict_residuals``,
+   3 x 399 ``gp_predict``), and each phase's OutputsRoboMove (4 x 399 +
+   100 + T - 1 ``gp_predict`` over the T-step test experiment; without
+   matplotlib the PDFs are skipped and every prediction still runs);
+   (b) ``info DIR``; (c) ``eval DIR --out DIR2``: the same Outputs from
+   model_meta.json and best.ckpt alone, its mse.txt equal to (a)'s;
+   (d) a ``PredictionServer`` in this process over
+   ``load_trained_model(DIR)``: 3 single requests and then 32
+   concurrent single-window requests, in JSON and in ``.npz``, then
+   ``/v1/params`` with model.ckpt and two more requests; every reply
+   equal to the direct ``BucketedPredictor`` call of its dispatch
+   (generator seed ``fold_seed(0, k)``), 399 launches a dispatch;
+   request latencies and the hot-swap time; (e) ``serve DIR --port 0``
+   in a subprocess: one request, then SIGTERM must end it with exit 0.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
 four, phase 7's two (``voliro``: training, test loss and outputs;
-``training_sarcos``) and phase 8's two (``lanes``: the Sarcos seeds'
-training, test loss and outputs; ``sweep``): each sets the launch counts
-(the lane kernels' included) to 0 just before it and reads them just
-after, and the kernels line lists them by path (``launches_by_path``;
+``training_sarcos``), phase 8's two (``lanes``: the Sarcos seeds'
+training, test loss and outputs; ``sweep``) and phase 9's four
+(``cli_reproduce``, ``cli_eval``, ``http_serve``, and ``cli_serve``,
+counted by the subprocess itself): each sets the launch counts (the
+lane kernels' included) to 0 just before it and reads them just after,
+and the kernels line lists them by path (``launches_by_path``;
 ``launches`` is their sum).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -1470,6 +1489,384 @@ def phase_lanes(card: str):
     return lane_kernels, {"lanes": lanes, "sweep": sweep}
 
 
+class _NoPlot:
+    """Stands in for pyplot where matplotlib is not installed: every
+    call does nothing, so the Outputs still run each prediction (and
+    write their .mat files and text) and only the PDFs are missing."""
+
+    def __getattr__(self, _name):
+        return lambda *args, **kwargs: None
+
+
+def cbfssm_predict_launches(t_len: int, recog_len: int) -> int:
+    """``gp_predict`` launches of one CBFSSM predict over ``t_len``
+    steps: 2 * recog_len blocked recognition steps, then t_len - 1
+    forward steps."""
+    if t_len <= 2 * recog_len:
+        fail(f"a {t_len}-step predict runs the sequential recognition; only the blocked "
+             "schedule is counted here")
+    return 2 * recog_len + t_len - 1
+
+
+def outputs_launches(ds, recog_len: int) -> int:
+    """``gp_predict`` launches of ``OutputsRoboMove.create_all``: two
+    300-step predictions (train, test), one over every test experiment
+    (mse and calibration share it) and two 300-step trajectories."""
+    window = cbfssm_predict_launches(min(ds.train_in.shape[1], SEQ_LEN), recog_len)
+    return (4 * window + ds.test_in.shape[0]
+            * cbfssm_predict_launches(ds.test_in.shape[1], recog_len))
+
+
+def _read_lines(stream, lines):
+    for line in iter(stream.readline, ""):
+        lines.put(line)
+    lines.put(None)
+
+
+def cli_serve_subprocess(model_dir: str, u, y, direct, card: str) -> int:
+    """(e) ``serve <dir> --port 0`` in its own process through
+    ``__main__.main`` (the SIGTERM handler needs the main thread): the
+    banner, one JSON request (held against the direct call of dispatch 0
+    at float32 tolerance: another process), then SIGTERM must end it
+    with exit 0. Returns the ``gp_predict`` launches it printed."""
+    import os
+    import queue
+    import signal
+
+    import numpy as np
+
+    prog = ("import sys\n"
+            "from cbfssm_tpu_torch.__main__ import main\n"
+            "from cbfssm_tpu_torch.ops import fused_predict as fp\n"
+            "rc = main(sys.argv[1:])\n"
+            "print('launches', fp.fused_predict.launches, fp.fused_predict_residuals.launches,"
+            " flush=True)\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    err_log = open(os.path.join(model_dir, "serve_stderr.txt"), "w+")
+    dev = [] if DEVICE == "cuda" else ["--device", DEVICE]  # a CPU rehearsal passes its device
+    proc = subprocess.Popen([sys.executable, "-c", prog, "serve", model_dir, "--port", "0", *dev],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
+
+    def stderr_tail():
+        err_log.seek(0)
+        return err_log.read()[-2000:]
+
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=_read_lines, args=(proc.stdout, lines), daemon=True).start()
+    try:
+        try:
+            banner = lines.get(timeout=300)
+        except queue.Empty:
+            banner = None
+        if not banner or "http://" not in banner:
+            proc.kill()
+            proc.wait(timeout=60)
+            fail(f"CLI serve: no banner ({banner!r}); stderr: {stderr_tail()}")
+        ready_s = time.perf_counter() - t0
+        base = banner.strip().rsplit(" ", 1)[1]
+        t1 = time.perf_counter()
+        code, reply = http_json("POST", base + "/v1/predict", {"u": u.tolist(), "y": y.tolist()})
+        first_ms = 1e3 * (time.perf_counter() - t1)
+        if code != 200:
+            fail(f"CLI serve: predict answered {code}: {reply}")
+        err = max(float(np.abs(np.asarray(reply[f]) - getattr(direct, f)[0]).max())
+                  for f in ("pred_mean", "pred_var"))
+        if not np.allclose(reply["pred_mean"], direct.pred_mean[0], rtol=1e-5, atol=1e-6):
+            fail(f"CLI serve: reply differs from the direct call by {err:.3e}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        rest = []
+        while (line := lines.get(timeout=30)) is not None:
+            rest.append(line)
+        if rc != 0 or not any("shutting down" in ln for ln in rest):
+            fail(f"CLI serve: exit {rc} after SIGTERM; stdout {rest}; stderr {stderr_tail()}")
+        counts = next(ln for ln in rest if ln.startswith("launches")).split()[1:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        err_log.close()
+    launches, residual = int(counts[0]), int(counts[1])
+    print(f"CLI serve: {banner.strip()}; ready in {ready_s:.2f} s, first request "
+          f"{first_ms:.2f} ms (max abs diff to the direct call {err:.3e}); SIGTERM: exit 0, "
+          f"'shutting down'; gp_predict launches {launches}, gp_predict_residuals {residual}; "
+          f"{card}", flush=True)
+    if residual != 0:
+        fail(f"CLI serve: gp_predict_residuals launched {residual} times, want 0")
+    return launches
+
+
+def http_json(method: str, url: str, body=None, timeout: float = 300):
+    """(status, parsed JSON reply) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method)
+    data = None
+    if body is not None:
+        data = json.dumps(body).encode()
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, data=data, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_serve(model_dir: str, u_all, y_all, card: str):
+    """(d) An in-process ``PredictionServer`` over
+    ``load_trained_model(dir)`` (buckets 1, 8, 32; the server's default
+    2 ms coalescing window): one request and then 32 concurrent
+    single-window requests, in JSON and in ``.npz``, then ``/v1/params``
+    with the last checkpoint and one request of each body. Every reply
+    must equal the direct ``BucketedPredictor`` call of its dispatch
+    (the batch it was coalesced into, generator seed ``fold_seed(0, k)``,
+    the params then served) exactly; every dispatch launches
+    ``gp_predict`` 399 times. Returns the launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch import model_store
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.serving import BucketedPredictor, MicroBatcher, fold_seed
+    from cbfssm_tpu_torch.serving_http import PredictionServer, post_params_npz, post_predict_npz
+    from cbfssm_tpu_torch.training import checkpoint
+
+    model, params = model_store.load_trained_model(model_dir, device=DEVICE)
+    _, last = model_store.load_trained_model(model_dir, checkpoint.LAST, device=DEVICE)
+    seq_len = model_store.load_model_meta(model_dir)["dataset"]["seq_len"]
+    dispatched = []
+
+    class Recording(BucketedPredictor):
+        def __call__(self, u, y, seed=None):
+            dispatched.append((u, y, seed, self.params))
+            return super().__call__(u, y, seed)
+
+    served = Recording(model, params, seq_len, buckets=BUCKETS)
+    served(u_all[:1], y_all[:1])  # first request: allocator and cuBLAS set-up
+    dispatched.clear()
+    sync()
+    # where a B = 1 request's time goes, on the last 6 windows: the
+    # predictor called directly, then through a MicroBatcher
+    plain = BucketedPredictor(model, params, seq_len, buckets=BUCKETS)
+
+    def timed_ms(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return 1e3 * (time.perf_counter() - t0)
+
+    last6 = len(u_all) - 6
+    direct_ms = statistics.median(timed_ms(plain, u_all[last6 + k:last6 + k + 1],
+                                           y_all[last6 + k:last6 + k + 1]) for k in range(3))
+    with MicroBatcher(plain) as mb:
+        batcher_ms = statistics.median(timed_ms(mb, u_all[last6 + 3 + k], y_all[last6 + 3 + k])
+                                       for k in range(3))
+    replies, lat = [], {}
+    with PredictionServer(served, port=0) as srv:
+        srv.start()
+        base = f"http://{srv.host}:{srv.port}"
+
+        def one(i, binary):
+            t0 = time.perf_counter()
+            if binary:
+                out = post_predict_npz(base, u_all[i], y_all[i], timeout=300)
+            else:
+                code, out = http_json("POST", base + "/v1/predict",
+                                      {"u": u_all[i].tolist(), "y": y_all[i].tolist()})
+                if code != 200:
+                    fail(f"HTTP serve: request {i} answered {code}: {out}")
+            return i, out, 1e3 * (time.perf_counter() - t0)
+
+        def wave(first, binary):
+            res = [None] * 32
+            barrier = threading.Barrier(32)
+
+            def client(k):
+                barrier.wait(timeout=300)
+                res[k] = one(first + k, binary)
+
+            before = srv.stats()["batches"]
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(32)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = 1e3 * (time.perf_counter() - t0)
+            if any(r is None for r in res):
+                fail("HTTP serve: a concurrent request got no reply")
+            return res, wall, srv.stats()["batches"] - before
+
+        fp.fused_predict.launches = 0
+        fp.fused_predict_residuals.launches = 0
+        # a window of its own for every request: a reply is matched to its
+        # dispatch by its window
+        for tag, binary, first in (("json", False, 0), ("npz", True, 3)):
+            r = [one(first + k, binary) for k in range(3)]  # B = 1, one after another
+            replies += r
+            lat[f"{tag} B=1"] = statistics.median(t for *_, t in r)
+        for tag, binary, first in (("json", False, 6), ("npz", True, 38)):
+            res, wall, n_disp = wave(first, binary)
+            replies += res
+            lat[f"{tag} B=32"] = (wall, n_disp, statistics.median(t for *_, t in res))
+        t0 = time.perf_counter()
+        post_params_npz(base, last, timeout=300)
+        swap_ms = 1e3 * (time.perf_counter() - t0)
+        replies += [one(70, False), one(71, True)]
+        stats = srv.stats()
+    launches, residual = fp.fused_predict.launches, fp.fused_predict_residuals.launches
+    if residual != 0:
+        fail(f"HTTP serve: gp_predict_residuals launched {residual} times, want 0")
+    if launches != STEPS_PER_CHUNK * len(dispatched):
+        fail(f"HTTP serve: gp_predict launches {launches} != {STEPS_PER_CHUNK} x "
+             f"{len(dispatched)} dispatches")
+    if [d[2] for d in dispatched] != [fold_seed(0, k) for k in range(len(dispatched))]:
+        fail("HTTP serve: dispatch k did not run with generator seed fold_seed(0, k)")
+    before, after = dispatched[:-2], dispatched[-2:]
+    if not (all(d[3] is params for d in before) and all(d[3] is after[0][3] for d in after)
+            and all(torch.equal(a, b) for a, b in zip(after[0][3].tensors(), last.tensors()))):
+        fail("HTTP serve: the dispatches did not run on best.ckpt, then on model.ckpt")
+    # the direct call of every dispatch, outside the counting window
+    direct = [BucketedPredictor(model, p, seq_len, buckets=BUCKETS)(u, y, seed)
+              for u, y, seed, p in dispatched]
+    for i, out, _ in replies:
+        k, row = next(((k, r) for k, d in enumerate(dispatched) for r in range(d[0].shape[0])
+                       if np.array_equal(d[0][r], u_all[i].astype(d[0].dtype))), (None, None))
+        if k is None:
+            fail(f"HTTP serve: request {i} is in no dispatch")
+        for f in ("pred_mean", "pred_var", "internal_mean", "internal_var", "sde"):
+            if not np.array_equal(np.asarray(out[f], dtype=np.float32), getattr(direct[k], f)[row]):
+                fail(f"HTTP serve: request {i} {f} differs from the direct call of dispatch {k}")
+    print(f"HTTP serve: {len(replies)} requests in {len(dispatched)} dispatches ("
+          f"{stats['requests']} served, max batch {stats['max_batch_seen']}), every reply equal "
+          f"to the direct call of its dispatch (fold_seed(0, k)); /v1/params with model.ckpt; "
+          f"gp_predict launches {launches} = {STEPS_PER_CHUNK} x {len(dispatched)}", flush=True)
+    print(f"latency B=1, median of 3: BucketedPredictor called directly {direct_ms:.2f} ms, "
+          f"through a MicroBatcher {batcher_ms:.2f} ms, over HTTP JSON {lat['json B=1']:.2f} "
+          f"ms, .npz {lat['npz B=1']:.2f} ms; {card}", flush=True)
+    for key in ("json", "npz"):
+        wall, n_disp, med = lat[f"{key} B=32"]
+        print(f"latency HTTP {key}: B=1 median of 3 {lat[f'{key} B=1']:.2f} ms; 32 concurrent "
+              f"single-window requests {wall:.2f} ms wall in {n_disp} dispatches (median "
+              f"request {med:.2f} ms); {card}", flush=True)
+    print(f"hot-swap: POST /v1/params (model.ckpt, {len(last.tensors())} leaves) "
+          f"{swap_ms:.2f} ms round trip; {card}", flush=True)
+    return launches, model, params
+
+
+def phase_cli_http(card: str):
+    """Phase 9: the CLI and the HTTP server at the RoboMove phase-0 width,
+    float32. (a) ``__main__.main(["reproduce", "robomove", "--epochs",
+    "1", "--root", DIR])`` in this process: both curriculum phases, one
+    full epoch each (16 x 399 ``gp_predict_residuals``, 3 x 399
+    ``gp_predict``) and the OutputsRoboMove of each; (b) ``info DIR``;
+    (c) ``eval DIR --out DIR2``, whose mse.txt must equal (a)'s; (d) the
+    in-process server (:func:`http_serve`); (e) the CLI ``serve`` in a
+    subprocess (:func:`cli_serve_subprocess`). Each of (a), (c), (d)
+    sets the launch counts to 0 just before and reads them just after.
+    Returns the launches by path."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import tempfile
+
+    from cbfssm_tpu_torch import __main__ as cli
+    from cbfssm_tpu_torch import run_robomove
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.outputs import outputs as outputs_mod
+    from cbfssm_tpu_torch.outputs import outputs_robomove
+    from cbfssm_tpu_torch.serving import BucketedPredictor, fold_seed
+
+    recog_len = run_robomove.model_config(0)["recog_len"]
+    dev = [] if DEVICE == "cuda" else ["--device", DEVICE]  # a CPU rehearsal passes its device
+    ds = robomove()
+    steps = -(-TRAIN_WINDOWS // BATCH)
+    test_batches = -(-TEST_WINDOWS // BATCH)
+    per_outputs = outputs_launches(ds, recog_len)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    saved = outputs_mod.pyplot, outputs_robomove.pyplot
+    if not plots:  # the PDFs are skipped, every prediction still runs
+        outputs_mod.pyplot = outputs_robomove.pyplot = _NoPlot
+    paths = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            root, evaldir = os.path.join(tmp, "robomove"), os.path.join(tmp, "eval")
+            fp.fused_predict.launches = 0
+            fp.fused_predict_residuals.launches = 0
+            t0 = time.perf_counter()
+            if cli.main(["reproduce", "robomove", "--epochs", "1", "--root", root, *dev]) != 0:
+                fail("CLI reproduce robomove did not return 0")
+            sync()
+            run_s = time.perf_counter() - t0
+            paths["cli_reproduce"] = (fp.fused_predict.launches,
+                                      fp.fused_predict_residuals.launches)
+            want = (2 * (test_batches * STEPS_PER_CHUNK + per_outputs),
+                    2 * steps * STEPS_PER_CHUNK)
+            if paths["cli_reproduce"] != want:
+                fail(f"CLI reproduce: (gp_predict, gp_predict_residuals) launches "
+                     f"{paths['cli_reproduce']} != {want}: 2 phases x ({test_batches} test "
+                     f"batches x {STEPS_PER_CHUNK} + OutputsRoboMove {per_outputs}), 2 x "
+                     f"{steps} steps x {STEPS_PER_CHUNK}")
+            for name in ("best.ckpt", "model.ckpt", "model_meta.json", "mse.txt",
+                         "calibration.txt", "predict_test.mat"):
+                if not os.path.isfile(os.path.join(root, name)):
+                    fail(f"CLI reproduce: {name} was not written")
+            print(f"CLI reproduce robomove: 2 curriculum phases of 1 epoch ({steps} Adam steps, "
+                  f"{test_batches} test batches) and their OutputsRoboMove in {run_s:.2f} s; "
+                  f"(gp_predict, gp_predict_residuals) launches {paths['cli_reproduce']} = "
+                  f"2 x ({test_batches} x {STEPS_PER_CHUNK} + {per_outputs}), 2 x {steps} x "
+                  f"{STEPS_PER_CHUNK}" + ("" if plots else
+                                          "; PDFs skipped: matplotlib is not installed here"),
+                  flush=True)
+
+            info = io.StringIO()
+            with contextlib.redirect_stdout(info):
+                rc = cli.main(["info", root])
+            text = info.getvalue()
+            if rc != 0 or "CBFSSM (dim_u=2, dim_y=2, seed=0, ds=RoboMove)" not in text or \
+                    "checkpoints: best.ckpt, model.ckpt" not in text:
+                fail(f"CLI info: exit {rc}, output {text[:500]!r}")
+            print(f"CLI info: {text.splitlines()[0]}; {text.splitlines()[1]}", flush=True)
+
+            fp.fused_predict.launches = 0
+            fp.fused_predict_residuals.launches = 0
+            t0 = time.perf_counter()
+            if cli.main(["eval", root, "--out", evaldir, *dev]) != 0:
+                fail("CLI eval did not return 0")
+            sync()
+            eval_s = time.perf_counter() - t0
+            paths["cli_eval"] = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
+            if paths["cli_eval"] != (per_outputs, 0):
+                fail(f"CLI eval: launches {paths['cli_eval']} != ({per_outputs}, 0)")
+            with open(os.path.join(root, "mse.txt")) as a, \
+                    open(os.path.join(evaldir, "mse.txt")) as b:
+                mse_a, mse_b = a.read(), b.read()
+            if mse_a != mse_b:
+                fail(f"CLI eval: mse.txt {mse_b!r} != the reproduce run's {mse_a!r}")
+            print(f"CLI eval: OutputsRoboMove from model_meta.json and best.ckpt alone in "
+                  f"{eval_s:.2f} s; mse.txt equals the reproduce run's "
+                  f"({' '.join(mse_a.split())}); gp_predict launches {paths['cli_eval'][0]}",
+                  flush=True)
+
+            u_all, y_all = ds.test_in_batch, ds.test_out_batch
+            launches, model, params = http_serve(root, u_all, y_all, card)
+            paths["http_serve"] = (launches, 0)
+            direct = BucketedPredictor(model, params, SEQ_LEN, buckets=BUCKETS)(
+                u_all[:1], y_all[:1], fold_seed(0, 0))
+            paths["cli_serve"] = (cli_serve_subprocess(root, u_all[0], y_all[0], direct, card),
+                                  0)
+            if paths["cli_serve"][0] != STEPS_PER_CHUNK:
+                fail(f"CLI serve: gp_predict launches {paths['cli_serve'][0]} != "
+                     f"{STEPS_PER_CHUNK} (one dispatch)")
+    finally:
+        outputs_mod.pyplot, outputs_robomove.pyplot = saved
+    return paths
+
+
 def main() -> None:
     if not (ROOT / "cbfssm_tpu_torch" / "__init__.py").is_file():
         fail("cbfssm_tpu_torch/ is not beside chip_smoke.py; run from the repository")
@@ -1493,13 +1890,14 @@ def main() -> None:
     other = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
     model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
     lane_kernels, lane_paths = timed("8 lanes", phase_lanes, card)
+    cli_paths = timed("9 CLI and HTTP", phase_cli_http, card)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
     # launches per main path: (gp_predict, gp_predict_residuals,
     # gp_predict_lanes, gp_predict_residuals_lanes)
     paths = {"serving": (serve_launches, 0), "training": (train_launches, residual_launches),
-             **other, **new_paths}
+             **other, **new_paths, **cli_paths}
     paths = {path: counts + (0, 0) for path, counts in paths.items()}
     paths.update(lane_paths)
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]

@@ -1,7 +1,7 @@
 """The port stands alone: importing ``cbfssm_tpu_torch`` (every module)
-or ``chip_smoke`` loads no JAX and no matplotlib, and ``chip_smoke.py``
-refuses to run without a GPU or outside the repository, printing no
-result."""
+or ``chip_smoke``, and ``python -m cbfssm_tpu_torch --help``, load no
+JAX and no matplotlib, and ``chip_smoke.py`` refuses to run without a
+GPU or outside the repository, printing no result."""
 
 import shutil
 import subprocess
@@ -12,6 +12,14 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# prints the loaded modules of JAX, the JAX package or matplotlib
+NOT_LOADED = """
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu',
+                                    'matplotlib'))
+print(bad)
+"""
 
 JAX_FREE = """
 import sys
@@ -36,12 +44,19 @@ import cbfssm_tpu_torch.run_spring, cbfssm_tpu_torch.run_smallscale
 import cbfssm_tpu_torch.create_datasets.create_robomove
 import cbfssm_tpu_torch.create_datasets.create_spring_nonlinear
 import cbfssm_tpu_torch.training.multiseed, cbfssm_tpu_torch.training.sweep
+import cbfssm_tpu_torch.model_store, cbfssm_tpu_torch.data.check
+import cbfssm_tpu_torch.serving_http, cbfssm_tpu_torch.__main__
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cbfssm_tpu',
-                                    'matplotlib'))
-print(bad)
-"""
+""" + NOT_LOADED
+
+CLI_HELP = """
+import runpy, sys
+sys.argv = ["cbfssm_tpu_torch", "--help"]
+try:
+    runpy.run_module("cbfssm_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+""" + NOT_LOADED
 
 
 def run(args, cwd, timeout=120):
@@ -53,6 +68,13 @@ def test_port_imports_no_jax():
     out = run(["-c", JAX_FREE], ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_cli_help_imports_no_jax():
+    out = run(["-c", CLI_HELP], ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "reproduce" in out.stdout and "serve" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_chip_smoke_fails_without_gpu():
