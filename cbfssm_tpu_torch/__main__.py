@@ -8,18 +8,21 @@
     python -m cbfssm_tpu_torch reproduce sarcos --check-data --data-dir DIR
     python -m cbfssm_tpu_torch eval run_output/robomove --out re_eval
     python -m cbfssm_tpu_torch serve run_output/robomove --port 8787
+    python -m cbfssm_tpu_torch serve --filter run_output/robomove_half --capacity 32
 
 ``reproduce`` runs the port's own drivers (``cbfssm_tpu_torch.run_*``),
 ``eval`` and ``serve`` rebuild the model from the directory's
-``model_meta.json`` alone (:mod:`cbfssm_tpu_torch.model_store`). Every
+``model_meta.json`` alone (:mod:`cbfssm_tpu_torch.model_store`);
+``serve --filter`` serves online-estimation sessions of a CBFSSMHALF or
+Voliro directory (a ``FilterPool`` behind a ``FilterServer``). Every
 command that builds a model runs on the card unless given ``--device
 cpu``. ``reproduce`` trains with ``gp_impl='pallas'``: the time
 recursions' GP predict runs the CUDA kernels (their plain versions on
 the CPU), and ``eval`` / ``serve`` rebuild that setting from the
 directory.
 
-Not ported yet: ``export``, ``bench``, ``serve --filter`` and serving an
-exported artifact.
+Not ported yet: ``export``, ``bench`` and serving an exported artifact
+(with or without ``--filter``).
 """
 
 from __future__ import annotations
@@ -297,11 +300,40 @@ def _resolve_auth_token(args):
     return token
 
 
+def _serve_filter(args) -> int:
+    """``serve --filter``: a FilterPool over the trained directory of a
+    streaming model (CBFSSMHALF, Voliro) behind a FilterServer."""
+    from cbfssm_tpu_torch.serving import FilterPool
+    from cbfssm_tpu_torch.serving_http import FilterServer
+
+    loaded = _load_checkpointed_model(args.model_dir, args.checkpoint, args.device)
+    if loaded is None:
+        return 2
+    _meta, model, params = loaded
+    try:
+        pool = FilterPool(model, params,
+                          capacity=32 if args.capacity is None else args.capacity,
+                          replay_buckets=args.replay_buckets or None)
+    except (TypeError, ValueError) as e:  # no streaming interface, bad capacity
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    server = FilterServer(pool, args.host, args.port, max_wait_ms=args.max_wait_ms,
+                          auth_token=_resolve_auth_token(args))
+    m = server.meta()
+    banner = (f"serving {m['model']} filter sessions (capacity "
+              f"{m['capacity']}, recog_len {m['recog_len']}, dim_u "
+              f"{m['dim_u']}, dim_y {m['dim_y']}, {m['dtype']}, "
+              f"auth {'on' if server.auth_token else 'off'}) "
+              f"on http://{server.host}:{server.port}")
+    return _serve_until_interrupt(server, banner)
+
+
 def cmd_serve(args) -> int:
     """Serve free-running prediction over HTTP from a trained directory:
     a BucketedPredictor over its best (or last) checkpoint behind a
     PredictionServer. Routes: /healthz, /v1/meta, /v1/stats, /metrics,
-    POST /v1/predict, POST /v1/params."""
+    POST /v1/predict, POST /v1/params. With ``--filter``, online
+    filter sessions instead (:func:`_serve_filter`)."""
     if os.path.isfile(os.path.join(args.model_dir, "meta.json")):
         print(f"error: {args.model_dir} is an exported artifact (meta.json); exported "
               "artifacts are not served by the port yet — serve the trained directory "
@@ -311,6 +343,8 @@ def cmd_serve(args) -> int:
         print(f"error: {args.model_dir} has no model_meta.json (not a trained directory)",
               file=sys.stderr)
         return 2
+    if args.filter:
+        return _serve_filter(args)
     loaded = _load_checkpointed_model(args.model_dir, args.checkpoint, args.device)
     if loaded is None:
         return 2
@@ -401,8 +435,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     s = sub.add_parser(
         "serve",
-        help="serve prediction over HTTP (stdlib transport, microbatched) from a "
-             "trained directory")
+        help="serve prediction (or, with --filter, filter sessions) over HTTP "
+             "(stdlib transport, coalescing) from a trained directory")
     s.add_argument("model_dir", help="trained directory (model_meta.json + checkpoints)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8787, help="listen port (0 = ephemeral)")
@@ -417,10 +451,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microbatcher coalescing bound")
     s.add_argument("--max-wait-ms", type=float, default=2.0,
                    help="microbatcher coalescing window")
+    s.add_argument("--filter", action="store_true",
+                   help="serve online-estimation sessions (a FilterPool over a streaming "
+                        "model's trained directory) instead of free-running prediction")
+    s.add_argument("--capacity", type=int, default=None,
+                   help="filter-session pool capacity (--filter only; default 32)")
+    s.add_argument("--replay-buckets", type=int, nargs="*", default=None,
+                   help="backlog-replay chunk ladder (--filter only)")
     s.add_argument("--auth-token", default=None,
-                   help="shared-secret Bearer token required on every POST (default: "
-                        "CBFSSM_AUTH_TOKEN env var; unset = open — fine for the loopback "
-                        "default, set one for any non-loopback bind)")
+                   help="shared-secret Bearer token required on every POST/DELETE and GET "
+                        "/v1/state (default: CBFSSM_AUTH_TOKEN env var; unset = open — fine "
+                        "for the loopback default, set one for any non-loopback bind)")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
     return p

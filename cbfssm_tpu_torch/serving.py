@@ -1,6 +1,7 @@
-"""Batch predictors for serving (port of ``CompiledPredictor``,
-``BucketedPredictor``, ``_CoalescingBatcher``, ``MicroBatcher`` and
-``validate_params_like`` of ``cbfssm_tpu/serving.py``).
+"""Serving (port of ``cbfssm_tpu/serving.py``): the batch predictors
+``CompiledPredictor``, ``BucketedPredictor`` and ``MicroBatcher``, the
+online filters ``StreamingFilter``, ``FilterPool`` and ``FilterBatcher``
+with the replay-chunk helpers, and ``validate_params_like``.
 
 PyTorch runs eagerly, so :class:`CompiledPredictor` is a fixed-shape
 predictor with the JAX class's shape checks and no ahead-of-time
@@ -45,6 +46,91 @@ def fold_seed(seed: int, index: int) -> int:
     """A child seed for stream ``index`` of ``seed``: distinct, well-mixed
     64-bit seeds for distinct (seed, index) pairs."""
     return int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0])
+
+
+def seed_key(seed: int) -> np.ndarray:
+    """The filters' base "key" for a 64-bit seed: ``uint32[2] = [seed >>
+    32, seed & 0xffffffff]``, the shape, dtype and word layout of
+    ``jax.random.PRNGKey(seed)``, so a snapshot's key field reads the
+    same in both packages."""
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+    return np.asarray([seed >> 32, seed & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def key_seed(key) -> int:
+    """The 64-bit seed whose :func:`seed_key` is ``key``."""
+    hi, lo = (int(w) for w in np.asarray(key, dtype=np.uint32))
+    return (hi << 32) | lo
+
+
+def normalize_replay_ladder(replay_buckets):
+    """Validated sorted ladder tuple from a ``replay_buckets`` argument
+    (``None`` -> ``()``: one exact-length replay chunk)."""
+    if replay_buckets is None:
+        return ()
+    ladder = tuple(sorted(int(b) for b in replay_buckets))
+    if not ladder or ladder[0] < 1:
+        raise ValueError(
+            f"replay_buckets must be a non-empty collection of "
+            f"lengths >= 1, got {replay_buckets!r}"
+        )
+    return ladder
+
+
+def iter_replay_chunks(u, y, buckets, active_full=None):
+    """Drive a backlog through the bucket ladder: yields ``(u_c, y_c,
+    active, k_act)`` per chunk: the arrays sliced on their time axis
+    (axis 1) and padded to the chunk's length, with the active mask
+    marking real steps (``[k_prog]`` by default, or ``active_full``
+    [K, ...] sliced and padded the same way for the pool's per-(tick,
+    slot) masks). The one chunk/pad/mask implementation of
+    :meth:`StreamingFilter.replay` and :meth:`FilterPool.replay`."""
+    k_total = u.shape[1]
+    off = 0
+    for k_act, k_prog in plan_replay_chunks(k_total, buckets):
+        u_c = u[:, off:off + k_act]
+        y_c = y[:, off:off + k_act]
+        if k_prog != k_act:
+            pad3 = ((0, 0), (0, k_prog - k_act), (0, 0))
+            u_c = np.pad(u_c, pad3)
+            y_c = np.pad(y_c, pad3)
+        if active_full is None:
+            active = np.arange(k_prog, dtype=np.int64) < k_act
+        else:
+            active = active_full[off:off + k_act]
+            if k_prog != k_act:
+                active = np.pad(
+                    active,
+                    ((0, k_prog - k_act),) + ((0, 0),) * (active.ndim - 1),
+                )
+        yield u_c, y_c, active, k_act
+        off += k_act
+
+
+def plan_replay_chunks(k_total, buckets):
+    """Split a K-step backlog into (k_active, k_program) chunks over a
+    bucket ladder of replay lengths.
+
+    Full chunks of the largest bucket run exactly; the remainder pads
+    up to the smallest bucket that fits (padded steps are masked
+    inactive, so they hold the ensemble and their outputs are sliced
+    off). ``buckets`` empty/None means one exact-length chunk.
+    """
+    if k_total < 1:
+        raise ValueError(f"backlog must have at least one step, got {k_total}")
+    ladder = normalize_replay_ladder(buckets or None)
+    if not ladder:
+        return [(k_total, k_total)]
+    plan = []
+    remaining = k_total
+    while remaining > ladder[-1]:
+        plan.append((ladder[-1], ladder[-1]))
+        remaining -= ladder[-1]
+    k_prog = next(b for b in ladder if b >= remaining)
+    plan.append((remaining, k_prog))
+    return plan
 
 
 def check_predict_output(model) -> None:
@@ -297,6 +383,521 @@ class BucketedPredictor:
         return out.replace(mse=np.asarray(mse, dtype=out.pred_mean.dtype))
 
 
+def _host(t) -> np.ndarray:
+    """A host numpy copy of a tensor (never a view of a CPU tensor that
+    a later in-place update would change)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+class _Filter:
+    """What :class:`StreamingFilter` and :class:`FilterPool` share: the
+    streaming-interface check, params on the model's device, the
+    operators, the base key and the draw schedule."""
+
+    def __init__(self, model, params, seed: int, owner: str, replay_buckets):
+        # filter_replay is checked at replay use (and for a ladder here):
+        # a model with the four-method contract serves without it
+        for attr in ("filter_ops", "filter_init", "filter_step", "forecast"):
+            if not hasattr(model, attr):
+                raise TypeError(
+                    f"{type(model).__name__} has no streaming interface "
+                    f"({attr}); {owner} supports CBFSSMHALF and Voliro"
+                )
+        self.model = model
+        self.params = params.with_tensors(
+            [t.detach().to(model.device) for t in params.tensors()])
+        self._base_key = seed_key(seed)
+        self._ops = self._filter_ops()
+        self._replay_buckets = normalize_replay_ladder(replay_buckets)
+        if self._replay_buckets:
+            self._require_replay()
+
+    def _filter_ops(self):
+        with torch.no_grad():
+            return self.model.filter_ops(self.params)
+
+    def _require_replay(self):
+        if not hasattr(self.model, "filter_replay"):
+            raise TypeError(
+                f"{type(self.model).__name__} has no filter_replay; "
+                "fused backlog replay supports CBFSSMHALF and Voliro"
+            )
+
+    def _dev(self, a):
+        """A host array as a tensor on the model's device, in its dtype."""
+        return torch.as_tensor(a, dtype=self.model.dtype, device=self.model.device)
+
+    def _draw_shape(self, lead, b: int):
+        """The ``eps=`` shape of ``filter_step`` (``lead`` empty) or of
+        ``forecast`` (``lead = (H,)``) at batch ``b``: ``lead + (b, S,
+        1)``, with a ``FILTER_DRAWS`` axis before ``b`` for a model whose
+        step takes more than one draw (Voliro: force, state)."""
+        draws = getattr(self.model, "FILTER_DRAWS", 1)
+        return tuple(lead) + ((draws,) if draws > 1 else ()) + (b, self.model.samples, 1)
+
+    def _draws(self, index: int, shape):
+        """Standard-normal draws of tick ``index``: ``shape`` from a
+        ``torch.Generator`` on the model's device seeded
+        ``fold_seed(key_seed(base key), index)``. Updates and steps use
+        the tick, forecasts ``2**30 + tick`` (the JAX key fold's
+        indices)."""
+        m = self.model
+        g = torch.Generator(device=m.device)
+        g.manual_seed(fold_seed(key_seed(self._base_key), index))
+        return torch.randn(tuple(shape), generator=g, dtype=m.dtype, device=m.device)
+
+    def _replay_draws(self, t0: int, k_prog: int, b: int):
+        """``[k_prog, ...]`` draws of a replay chunk starting at tick
+        ``t0``: step i takes tick ``t0 + i``'s draws, exactly those of
+        the sequential updates (padded steps draw too, and are held)."""
+        shape = self._draw_shape((), b)
+        return torch.stack([self._draws(t0 + i, shape) for i in range(k_prog)])
+
+    @staticmethod
+    def _restore_key(key, current):
+        """Validated key restore shared by the failover loaders: None
+        (legacy snapshot) keeps the instance's own key; otherwise the
+        snapshot's key must be a uint32[2] like ``current``."""
+        if key is None:
+            return current
+        key = np.asarray(key)
+        want = (np.asarray(current).shape, np.asarray(current).dtype)
+        if (key.shape, key.dtype) != want:
+            raise ValueError(
+                f"snapshot key has shape/dtype {(key.shape, key.dtype)}, "
+                f"expected {want}"
+            )
+        return key.copy()
+
+
+class StreamingFilter(_Filter):
+    """Stateful online state estimation: a particle filter over a
+    trained CBFSSMHALF (whose conditioning update touches only the
+    observed dims) or Voliro (set ``config['filter_dt']``), with the
+    ensemble on the model's device.
+
+    >>> f = StreamingFilter(model, params, batch=1)
+    >>> f.start(u_prefix, y_prefix)          # recognition net -> x_0
+    >>> mean, var = f.update(u_prev, y_new)  # one conditioned transition
+    >>> mean, var = f.forecast(u_future)     # free-run ahead, state kept
+    >>> mean, var = f.replay(u_blk, y_blk)   # K backlog steps
+
+    ``update`` and ``forecast`` return tensors on the model's device,
+    ``replay`` host arrays. ``state`` / ``load_state`` carry the
+    ensemble, the step counter and the base key for failover.
+
+    Draws: update ``t`` takes ``eps`` from a generator seeded
+    ``fold_seed(seed, t)``, a forecast at counter ``t`` from ``fold_seed(seed,
+    2**30 + t)`` (:meth:`_draws`). The base key is the seed as ``uint32[2]``
+    (:func:`seed_key`), the words of ``jax.random.PRNGKey(seed)``, so
+    snapshots pass between the two packages; the draws themselves
+    differ (Philox against threefry). ``replay`` feeds step i the draws
+    of update ``t0 + i``, so it equals the sequential updates by
+    construction; ``replay_buckets`` chunks a backlog over a ladder of
+    lengths (padded steps are masked and launch as well).
+    """
+
+    def __init__(self, model, params, batch: int = 1, seed: int = 0,
+                 replay_buckets=None):
+        super().__init__(model, params, seed, "StreamingFilter", replay_buckets)
+        self.batch = batch
+        self._x = None
+        self._t = 0
+
+    # --- state management ----------------------------------------------
+
+    def reload_params(self, params) -> None:
+        """Hot-swap the trained checkpoint without dropping the session:
+        the ensemble, step counter and base key carry over. The params
+        are validated (:func:`validate_params_like`), copied to the
+        filter's device, and ``filter_ops`` is recomputed."""
+        self.params = validate_params_like(self.params, params)
+        self._ops = self._filter_ops()
+
+    @property
+    def state(self):
+        """(ensemble [B, S, dx] host array or None, step counter, base
+        key uint32[2]). The key rides along so a standby built with
+        another seed resumes the primary's draw stream."""
+        return (None if self._x is None else _host(self._x), self._t,
+                self._base_key.copy())
+
+    def load_state(self, state) -> None:
+        if len(state) == 2:  # pre-key snapshots: keep this seed's key
+            (x, t), key = state, None
+        else:
+            x, t, key = state
+        if x is not None:
+            x = self._dev(x)
+            want = (self.batch, self.model.samples, self.model.dim_x)
+            if tuple(x.shape) != want:
+                raise ValueError(
+                    f"ensemble must be {want} for this filter, got {tuple(x.shape)}"
+                )
+        self._base_key = self._restore_key(key, self._base_key)
+        self._x = x
+        self._t = int(t)
+
+    def _require_started(self):
+        if self._x is None:
+            raise RuntimeError("call start(u_prefix, y_prefix) first")
+
+    # --- start, update, replay, forecast ----------------------------------
+
+    def start(self, u_prefix, y_prefix) -> None:
+        """Initialize the ensemble from a recog_len warmup window."""
+        m = self.model
+        u = np.asarray(u_prefix, dtype=m.np_dtype)
+        y = np.asarray(y_prefix, dtype=m.np_dtype)
+        want = (self.batch, int(m.config.recog_len))
+        if u.shape != want + (m.dim_u,):
+            raise ValueError(
+                f"built for prefix shape {want + (m.dim_u,)}, got u {u.shape}"
+            )
+        if y.shape != want + (m.dim_y,):
+            raise ValueError(
+                f"y_prefix must be {want + (m.dim_y,)} to match "
+                f"u_prefix, got {y.shape}"
+            )
+        with torch.no_grad():
+            self._x = m.filter_init(self.params, self._dev(u), self._dev(y))
+        self._t = 0
+
+    def update(self, u_prev, y_new):
+        """Advance one transition conditioned on the arriving
+        observation; returns filtered (mean [B, dy], var [B, dy])."""
+        self._require_started()
+        m = self.model
+        u = np.asarray(u_prev, dtype=m.np_dtype)
+        y = np.asarray(y_new, dtype=m.np_dtype)
+        if u.shape != (self.batch, m.dim_u) or y.shape != (self.batch, m.dim_y):
+            raise ValueError(
+                f"update expects u [{self.batch}, {m.dim_u}] and "
+                f"y [{self.batch}, {m.dim_y}], got {u.shape} / {y.shape}"
+            )
+        eps = self._draws(self._t, self._draw_shape((), self.batch))
+        with torch.no_grad():
+            self._x, (mean, var) = m.filter_step(
+                self.params, self._ops, self._x, self._dev(u), self._dev(y), eps=eps)
+        self._t += 1
+        return mean, var
+
+    def replay(self, u_block, y_block):
+        """Catch up on a K-step backlog, ``u_block`` [B, K, du] /
+        ``y_block`` [B, K, dy], one ``filter_replay`` per bucket chunk.
+        Equal to K sequential :meth:`update` calls (the same draws, the
+        same step body). Returns host (mean [B, K, dy], var [B, K, dy])."""
+        self._require_started()
+        self._require_replay()
+        m = self.model
+        u = np.asarray(u_block, dtype=m.np_dtype)
+        y = np.asarray(y_block, dtype=m.np_dtype)
+        if u.ndim != 3 or u.shape[0] != self.batch or u.shape[2] != m.dim_u:
+            raise ValueError(
+                f"u_block must be [{self.batch}, K, {m.dim_u}], got {u.shape}"
+            )
+        k_total = u.shape[1]
+        if y.shape != (self.batch, k_total, m.dim_y):
+            raise ValueError(
+                f"y_block must be [{self.batch}, {k_total}, "
+                f"{m.dim_y}] to match u_block, got {y.shape}"
+            )
+        means, vars_ = [], []
+        for u_c, y_c, active, k_act in iter_replay_chunks(u, y, self._replay_buckets):
+            eps = self._replay_draws(self._t, u_c.shape[1], self.batch)
+            with torch.no_grad():
+                self._x, (mv, vv) = m.filter_replay(
+                    self.params, self._ops, self._x, self._dev(u_c), self._dev(y_c),
+                    active=torch.as_tensor(active, device=m.device), eps=eps)
+            self._t += k_act
+            means.append(_host(mv)[:, :k_act])
+            vars_.append(_host(vv)[:, :k_act])
+        if len(means) == 1:
+            return means[0], vars_[0]
+        return np.concatenate(means, axis=1), np.concatenate(vars_, axis=1)
+
+    def forecast(self, u_future):
+        """Free-run prediction from the current ensemble over
+        ``u_future`` [B, H, du]; does not advance the filter state."""
+        self._require_started()
+        m = self.model
+        u = np.asarray(u_future, dtype=m.np_dtype)
+        if u.ndim != 3 or u.shape[0] != self.batch or u.shape[2] != m.dim_u:
+            raise ValueError(
+                f"u_future must be [{self.batch}, H, {m.dim_u}], got {u.shape}"
+            )
+        eps = self._draws(2**30 + self._t, self._draw_shape((u.shape[1],), self.batch))
+        with torch.no_grad():
+            return m.forecast(self.params, self._ops, self._x, self._dev(u), eps=eps)
+
+
+class FilterPool(_Filter):
+    """Many independent online-filtering sessions, one batched step.
+
+    The pool packs up to ``capacity`` sessions into the batch axis of
+    one ``filter_step``: :meth:`step` advances every participating
+    session at once, and computes all ``capacity`` rows (sessions not
+    listed hold their rows through a ``torch.where`` mask, which is
+    exact). Rows are independent (the draws are indexed by row, the GP
+    predicts rows independently), so co-resident sessions never affect
+    each other.
+
+    >>> pool = FilterPool(model, params, capacity=32)
+    >>> a = pool.attach(u_prefix, y_prefix)      # [recog_len, du/dy]
+    >>> out = pool.step({a: (u_a, y_a)})         # {sid: (mean [dy], var [dy])}
+    >>> fc = pool.forecast({a: u_future})        # (mean/var [H, dy])
+    >>> pool.replay({a: (u_blk, y_blk)})         # ragged backlogs
+    >>> pool.detach(a)
+
+    Tick ``t`` of a step draws as :class:`StreamingFilter` update ``t``
+    does (one shared ``[capacity, ...]`` draw), a forecast at tick
+    ``t`` as its forecast. Not thread-safe: drive it from one loop, or
+    through :class:`FilterBatcher`. ``state`` / ``load_state`` carry
+    the whole pool (ensemble, tick, session table, base key). ``mesh=``
+    (sharding the capacity axis over devices) is not ported.
+    """
+
+    def __init__(self, model, params, capacity: int, seed: int = 0,
+                 mesh=None, replay_buckets=None):
+        if mesh is not None:
+            raise ValueError("FilterPool(mesh=...) is not ported (ROADMAP A6.1)")
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        super().__init__(model, params, seed, "FilterPool", replay_buckets)
+        self.capacity = int(capacity)
+        m = self.model
+        self._x = torch.zeros((self.capacity, m.samples, m.dim_x), dtype=m.dtype,
+                              device=m.device)
+        self._slots: dict = {}  # sid -> slot
+        self._free = list(range(self.capacity - 1, -1, -1))  # pop() -> slot 0 first
+        self._next_sid = 0
+        self._tick = 0
+
+    # --- session management --------------------------------------------
+
+    @property
+    def active(self) -> int:
+        return len(self._slots)
+
+    def reload_params(self, params) -> None:
+        """Hot-swap the fleet's checkpoint without dropping a session:
+        ensembles, tick, table and base key carry over. The new params
+        are validated and placed on the pool's own device
+        (:func:`validate_params_like`), then ``filter_ops`` is
+        recomputed there."""
+        self.params = validate_params_like(self.params, params)
+        self._ops = self._filter_ops()
+
+    def attach(self, u_prefix, y_prefix) -> int:
+        """Start a session from a recog_len warmup window (the
+        recognition net training uses); returns its session id."""
+        if not self._free:
+            raise RuntimeError(f"pool full ({self.capacity} sessions)")
+        m = self.model
+        recog_len = int(m.config.recog_len)
+        u = np.asarray(u_prefix, dtype=m.np_dtype)
+        y = np.asarray(y_prefix, dtype=m.np_dtype)
+        if u.shape != (recog_len, m.dim_u):
+            raise ValueError(
+                f"u_prefix must be [{recog_len}, {m.dim_u}] "
+                f"(one session), got {u.shape}"
+            )
+        if y.shape != (recog_len, m.dim_y):
+            raise ValueError(
+                f"y_prefix must be [{recog_len}, {m.dim_y}] to "
+                f"match u_prefix, got {y.shape}"
+            )
+        with torch.no_grad():
+            x0 = m.filter_init(self.params, self._dev(u[None]), self._dev(y[None]))
+            slot = self._free.pop()
+            self._x[slot] = x0[0]
+        sid = self._next_sid
+        self._next_sid += 1
+        self._slots[sid] = slot
+        return sid
+
+    def detach(self, sid: int) -> None:
+        """End a session; its slot is zeroed and becomes reusable."""
+        slot = self._slots.pop(sid)  # KeyError on unknown sid
+        self._x[slot] = 0.0
+        self._free.append(slot)
+
+    # --- step, replay, forecast ------------------------------------------
+
+    def step(self, inputs: dict) -> dict:
+        """Advance the sessions in ``inputs``, ``{sid: (u_prev [du],
+        y_new [dy])}``, by one conditioned transition; sessions not
+        listed hold their state. Returns ``{sid: (mean [dy], var
+        [dy])}`` (numpy) of filtered observation-space moments."""
+        if not inputs:
+            raise ValueError("step() needs at least one session input")
+        m = self.model
+        u_full = np.zeros((self.capacity, m.dim_u), m.np_dtype)
+        y_full = np.zeros((self.capacity, m.dim_y), m.np_dtype)
+        mask = np.zeros((self.capacity,), np.bool_)
+        for sid, (u, y) in inputs.items():
+            slot = self._slots[sid]  # KeyError on unknown sid
+            u = np.asarray(u, dtype=m.np_dtype)
+            y = np.asarray(y, dtype=m.np_dtype)
+            if u.shape != (m.dim_u,) or y.shape != (m.dim_y,):
+                raise ValueError(
+                    f"session {sid}: expected u [{m.dim_u}] and "
+                    f"y [{m.dim_y}], got {u.shape} / {y.shape}"
+                )
+            u_full[slot], y_full[slot], mask[slot] = u, y, True
+        eps = self._draws(self._tick, self._draw_shape((), self.capacity))
+        with torch.no_grad():
+            x_next, (mean, var) = m.filter_step(
+                self.params, self._ops, self._x, self._dev(u_full), self._dev(y_full), eps=eps)
+            keep = torch.as_tensor(mask, device=m.device)[:, None, None]
+            self._x = torch.where(keep, x_next, self._x)
+        self._tick += 1
+        mean, var = _host(mean), _host(var)  # one readback each, then host fan-out
+        return {sid: (mean[self._slots[sid]], var[self._slots[sid]]) for sid in inputs}
+
+    def replay(self, inputs: dict) -> dict:
+        """Catch the sessions in ``inputs``, ``{sid: (u [K_i, du], y
+        [K_i, dy])}`` with per-session lengths, up on their backlogs in
+        one ``filter_replay`` per bucket chunk under a ``[K, capacity]``
+        active mask; sessions not listed hold throughout. Equal to the
+        sequential schedule in which tick t carries exactly the sessions
+        with K_i > t. Returns ``{sid: (mean [K_i, dy], var [K_i, dy])}``
+        (numpy)."""
+        if not inputs:
+            raise ValueError("replay() needs at least one session input")
+        self._require_replay()
+        m = self.model
+        staged = {}
+        for sid, (u, y) in inputs.items():
+            slot = self._slots[sid]  # KeyError on unknown sid
+            u = np.asarray(u, dtype=m.np_dtype)
+            y = np.asarray(y, dtype=m.np_dtype)
+            if u.ndim != 2 or u.shape[1] != m.dim_u or u.shape[0] < 1:
+                raise ValueError(
+                    f"session {sid}: backlog u must be [K>=1, "
+                    f"{m.dim_u}], got {u.shape}"
+                )
+            if y.shape != (u.shape[0], m.dim_y):
+                raise ValueError(
+                    f"session {sid}: backlog y must be [{u.shape[0]}, "
+                    f"{m.dim_y}] to match u, got {y.shape}"
+                )
+            staged[slot] = (sid, u, y)
+        k_total = max(u.shape[0] for _, u, _ in staged.values())
+        u_full = np.zeros((self.capacity, k_total, m.dim_u), m.np_dtype)
+        y_full = np.zeros((self.capacity, k_total, m.dim_y), m.np_dtype)
+        act = np.zeros((k_total, self.capacity), np.bool_)
+        for slot, (_, u, y) in staged.items():
+            ki = u.shape[0]
+            u_full[slot, :ki] = u
+            y_full[slot, :ki] = y
+            act[:ki, slot] = True
+        means, vars_ = [], []
+        for u_c, y_c, a_c, k_act in iter_replay_chunks(
+                u_full, y_full, self._replay_buckets, active_full=act):
+            eps = self._replay_draws(self._tick, u_c.shape[1], self.capacity)
+            with torch.no_grad():
+                self._x, (mv, vv) = m.filter_replay(
+                    self.params, self._ops, self._x, self._dev(u_c), self._dev(y_c),
+                    active=torch.as_tensor(a_c, device=m.device), eps=eps)
+            self._tick += k_act
+            means.append(_host(mv)[:, :k_act])
+            vars_.append(_host(vv)[:, :k_act])
+        mean = means[0] if len(means) == 1 else np.concatenate(means, axis=1)
+        var = vars_[0] if len(vars_) == 1 else np.concatenate(vars_, axis=1)
+        return {sid: (mean[slot, :u.shape[0]], var[slot, :u.shape[0]])
+                for slot, (sid, u, _) in staged.items()}
+
+    def forecast(self, inputs: dict) -> dict:
+        """Free-run the sessions in ``inputs``, ``{sid: u_future [H,
+        du]}`` with one shared horizon H, without advancing any state.
+        Returns ``{sid: (mean [H, dy], var [H, dy])}`` (numpy)."""
+        if not inputs:
+            raise ValueError("forecast() needs at least one session input")
+        m = self.model
+        for sid, u in inputs.items():
+            shape = np.asarray(u).shape
+            if len(shape) != 2 or shape[0] < 1:
+                raise ValueError(
+                    f"session {sid}: u_future must be [H >= 1, "
+                    f"{m.dim_u}], got {shape}"
+                )
+        horizons = {np.asarray(u).shape[:1] for u in inputs.values()}
+        if len(horizons) != 1:
+            raise ValueError(
+                f"all sessions must share one horizon, got {sorted(horizons)}"
+            )
+        (h,) = horizons.pop()
+        u_full = np.zeros((self.capacity, h, m.dim_u), m.np_dtype)
+        for sid, u in inputs.items():
+            slot = self._slots[sid]
+            u = np.asarray(u, dtype=m.np_dtype)
+            if u.shape != (h, m.dim_u):
+                raise ValueError(
+                    f"session {sid}: u_future must be [{h}, {m.dim_u}], "
+                    f"got {u.shape}"
+                )
+            u_full[slot] = u
+        eps = self._draws(2**30 + self._tick, self._draw_shape((h,), self.capacity))
+        with torch.no_grad():
+            mean, var = m.forecast(self.params, self._ops, self._x, self._dev(u_full), eps=eps)
+        mean, var = _host(mean), _host(var)
+        return {sid: (mean[self._slots[sid]], var[self._slots[sid]]) for sid in inputs}
+
+    # --- failover -------------------------------------------------------
+
+    @property
+    def state(self):
+        """(ensemble [C, S, dx], tick, {sid: slot}, next_sid, base key
+        uint32[2]): host values, serializable. The key rides along so a
+        standby built with another seed resumes the primary's draws."""
+        return (_host(self._x), self._tick, dict(self._slots), self._next_sid,
+                self._base_key.copy())
+
+    def load_state(self, state) -> None:
+        if len(state) == 4:  # pre-key snapshots: keep this seed's key
+            (x, tick, slots, next_sid), key = state, None
+        else:
+            x, tick, slots, next_sid, key = state
+        if np.asarray(x).shape != tuple(self._x.shape):
+            raise ValueError(
+                f"state ensemble shape {np.asarray(x).shape} != pool "
+                f"shape {tuple(self._x.shape)}"
+            )
+        # coerce before validating and storing: a string-typed slot
+        # ("3") would pass int()-based checks, miss the used-set and hand
+        # its row to the next attach(); coercion can also collapse
+        # aliased keys ("5" / "+5"), which is refused
+        raw_len = len(dict(slots))
+        slots = {int(s): int(v) for s, v in dict(slots).items()}
+        if len(slots) != raw_len:
+            raise ValueError("duplicate session ids in state table")
+        bad = {s: v for s, v in slots.items() if not 0 <= int(v) < self.capacity}
+        if bad:
+            raise ValueError(
+                f"state maps sessions to out-of-range slots {bad} "
+                f"(capacity {self.capacity})"
+            )
+        if len(set(slots.values())) != len(slots):
+            raise ValueError(
+                f"state maps multiple sessions to one slot: {slots}"
+            )
+        # attach() hands out next_sid unconditionally: it must clear
+        # every live sid, or a live session's mapping would be reissued
+        if slots and int(next_sid) <= max(int(s) for s in slots):
+            raise ValueError(
+                f"state next_sid {int(next_sid)} collides with live "
+                f"session ids (max {max(int(s) for s in slots)})"
+            )
+        self._base_key = self._restore_key(key, self._base_key)
+        self._x = self._dev(np.asarray(x)).clone()
+        self._tick = int(tick)
+        self._slots = slots
+        used = set(self._slots.values())
+        self._free = [s for s in range(self.capacity - 1, -1, -1) if s not in used]
+        self._next_sid = int(next_sid)
+
+
 class _CoalescingBatcher:
     """Queue, shutdown and coalescing machinery of :class:`MicroBatcher`.
 
@@ -531,3 +1132,236 @@ class MicroBatcher(_CoalescingBatcher):
                     failed += 1
             with self._lock:
                 self._stats["errors"] += failed
+
+
+class FilterBatcher(_CoalescingBatcher):
+    """Coalescing front-end for a :class:`FilterPool`.
+
+    A pool must be driven from one loop; a transport with one handler
+    thread per connected estimator needs every pool operation on one
+    thread and concurrent per-session operations coalesced into the
+    pool's batched calls. Callers submit per-session operations from any
+    thread and get Futures; one dispatcher thread drains the queue in
+    FIFO order, groups adjacent compatible operations (same kind,
+    distinct sessions, and for forecast one shared horizon) and serves
+    each group in one pool call. All device work runs on that thread.
+
+    >>> fb = FilterBatcher(FilterPool(model, params, capacity=32))
+    >>> sid = fb.attach(u_prefix, y_prefix).result()
+    >>> mean, var = fb.step(sid, u_prev, y_new).result()
+    >>> fb.forecast(sid, u_future).result()    # (mean [H, dy], var)
+    >>> fb.replay(sid, u_block, y_block).result()
+    >>> fb.detach(sid).result(); fb.close()
+
+    A second operation of a session already in the open group closes
+    the group first, so a session never rides one dispatch twice and
+    its operations never reorder. A session's result depends on the
+    pool tick its group lands on, exactly as if the same groups were
+    played into a bare pool. ``attach`` / ``detach`` / ``state`` /
+    ``load_state`` / ``reload_params`` run as singleton items, between
+    fleet dispatches. A failed item (unknown session) fails only its
+    own future.
+    """
+
+    _GROUPABLE = ("step", "forecast", "replay")
+
+    def __init__(self, pool, max_wait_ms: float = 2.0, queue_size: int = 1024):
+        self.pool = pool
+        super().__init__(max_wait_ms, queue_size, {
+            "requests": 0, "dispatches": 0, "errors": 0,
+            "grouped_ops": 0, "max_group_seen": 0, "wait_s": 0.0,
+        }, "cbfssm-filterbatcher")
+
+    # --- client side (any thread) ---------------------------------------
+
+    def _submit(self, kind, sid, payload) -> Future:
+        fut: Future = Future()
+        self._enqueue((kind, sid, payload, fut, time.perf_counter()))
+        return fut
+
+    def attach(self, u_prefix, y_prefix) -> Future:
+        """Future resolving to the new session id. Shape errors raise
+        here (submit side), not in the future."""
+        model = self.pool.model
+        recog_len = int(model.config.recog_len)
+        u = np.asarray(u_prefix, dtype=model.np_dtype)
+        y = np.asarray(y_prefix, dtype=model.np_dtype)
+        if u.shape != (recog_len, model.dim_u):
+            raise ValueError(
+                f"u_prefix must be [{recog_len}, {model.dim_u}] "
+                f"(one session), got {u.shape}"
+            )
+        if y.shape != (recog_len, model.dim_y):
+            raise ValueError(
+                f"y_prefix must be [{recog_len}, {model.dim_y}] to match "
+                f"u_prefix, got {y.shape}"
+            )
+        return self._submit("attach", None, (u, y))
+
+    def detach(self, sid: int) -> Future:
+        """Future resolving to None once the slot is released."""
+        return self._submit("detach", int(sid), None)
+
+    def step(self, sid: int, u_prev, y_new) -> Future:
+        """Future resolving to this session's ``(mean [dy], var [dy])``;
+        concurrent steps of other sessions may ride the same pool call."""
+        model = self.pool.model
+        u = np.asarray(u_prev, dtype=model.np_dtype)
+        y = np.asarray(y_new, dtype=model.np_dtype)
+        if u.shape != (model.dim_u,) or y.shape != (model.dim_y,):
+            raise ValueError(
+                f"expected u [{model.dim_u}] and y [{model.dim_y}], "
+                f"got {u.shape} / {y.shape}"
+            )
+        return self._submit("step", int(sid), (u, y))
+
+    def forecast(self, sid: int, u_future) -> Future:
+        """Future resolving to ``(mean [H, dy], var [H, dy])`` without
+        advancing state; coalesces with same-horizon forecasts."""
+        model = self.pool.model
+        u = np.asarray(u_future, dtype=model.np_dtype)
+        if u.ndim != 2 or u.shape[1] != model.dim_u or u.shape[0] < 1:
+            raise ValueError(
+                f"u_future must be [H>=1, {model.dim_u}], got {u.shape}"
+            )
+        return self._submit("forecast", int(sid), u)
+
+    def replay(self, sid: int, u_block, y_block) -> Future:
+        """Future resolving to ``(mean [K, dy], var [K, dy])`` after a
+        backlog catch-up; ragged replays of other sessions may share the
+        pool call (its per-(tick, slot) mask)."""
+        model = self.pool.model
+        u = np.asarray(u_block, dtype=model.np_dtype)
+        y = np.asarray(y_block, dtype=model.np_dtype)
+        if u.ndim != 2 or u.shape[1] != model.dim_u or u.shape[0] < 1:
+            raise ValueError(
+                f"backlog u must be [K>=1, {model.dim_u}], got {u.shape}"
+            )
+        if y.shape != (u.shape[0], model.dim_y):
+            raise ValueError(
+                f"backlog y must be [{u.shape[0]}, {model.dim_y}] to "
+                f"match u, got {y.shape}"
+            )
+        return self._submit("replay", int(sid), (u, y))
+
+    def state(self) -> Future:
+        """Future resolving to the pool's failover snapshot, taken
+        between dispatches (never mid-tick)."""
+        return self._submit("state", None, None)
+
+    def load_state(self, state) -> Future:
+        """Future resolving to None once the snapshot is restored."""
+        return self._submit("load_state", None, state)
+
+    def reload_params(self, params) -> Future:
+        """Future resolving to None once the fleet serves the new
+        checkpoint (sessions keep their state); the swap lands between
+        fleet dispatches."""
+        return self._submit("reload_params", None, params)
+
+    def stats(self) -> dict:
+        """requests, dispatches (pool calls incl. lifecycle items),
+        errors, mean_group_size, max_group_seen, mean_wait_ms."""
+        with self._lock:
+            s = dict(self._stats)
+        n, d = s.pop("grouped_ops"), s["dispatches"]
+        wait = s.pop("wait_s")
+        s["mean_group_size"] = n / d if d else 0.0
+        s["mean_wait_ms"] = 1e3 * wait / n if n else 0.0
+        return s
+
+    # --- dispatcher thread ----------------------------------------------
+
+    def _collect_cap(self) -> int:
+        # a group cannot exceed the pool's capacity, and a longer sweep
+        # would only delay the first item
+        return self.pool.capacity
+
+    def _flush(self, kind, group):
+        """Serve one homogeneous group (distinct sids) in one pool call;
+        an unknown sid fails only its own future."""
+        live, inputs = [], {}
+        for sid, payload, fut, t in group:
+            if not fut.set_running_or_notify_cancel():
+                continue
+            if sid not in self.pool._slots:
+                fut.set_exception(KeyError(f"unknown session {sid}"))
+                with self._lock:
+                    self._stats["errors"] += 1
+                continue
+            live.append((sid, fut, t))
+            inputs[sid] = payload
+        if not live:
+            return
+        t_dispatch = time.perf_counter()
+        with self._lock:
+            self._stats["dispatches"] += 1
+            self._stats["grouped_ops"] += len(live)
+            self._stats["max_group_seen"] = max(self._stats["max_group_seen"], len(live))
+            self._stats["wait_s"] += sum(t_dispatch - t for *_, t in live)
+        try:
+            out = getattr(self.pool, kind)(inputs)
+            for sid, fut, _t in live:
+                fut.set_result(out[sid])
+        except Exception as exc:
+            failed = 0
+            for _sid, fut, _t in live:
+                if not fut.done():
+                    fut.set_exception(exc)
+                    failed += 1
+            with self._lock:
+                self._stats["errors"] += failed
+
+    def _run_single(self, kind, sid, payload, fut, t):
+        """A lifecycle or failover item on the dispatcher thread."""
+        if not fut.set_running_or_notify_cancel():
+            return
+        with self._lock:
+            self._stats["dispatches"] += 1
+            self._stats["grouped_ops"] += 1
+            # lifecycle items count in grouped_ops, so their wait
+            # belongs in wait_s (mean_wait_ms)
+            self._stats["wait_s"] += time.perf_counter() - t
+        try:
+            if kind == "attach":
+                fut.set_result(self.pool.attach(*payload))
+            elif kind == "detach":
+                fut.set_result(self.pool.detach(sid))
+            elif kind == "state":
+                fut.set_result(self.pool.state)
+            elif kind == "reload_params":
+                fut.set_result(self.pool.reload_params(payload))
+            else:  # load_state
+                fut.set_result(self.pool.load_state(payload))
+        except Exception as exc:
+            fut.set_exception(exc)
+            with self._lock:
+                self._stats["errors"] += 1
+
+    def _serve(self, batch) -> None:
+        with self._lock:
+            self._stats["requests"] += len(batch)
+        # group_sids: the open group's sessions (a set, so a tick of
+        # many sessions groups in linear time)
+        group_kind, group, group_sids, horizon = None, [], set(), None
+        for kind, sid, payload, fut, t in batch:
+            if kind not in self._GROUPABLE:
+                if group:
+                    self._flush(group_kind, group)
+                    group_kind, group, group_sids, horizon = None, [], set(), None
+                self._run_single(kind, sid, payload, fut, t)
+                continue
+            h = payload.shape[0] if kind == "forecast" else None
+            boundary = (
+                kind != group_kind
+                or sid in group_sids
+                or (kind == "forecast" and h != horizon)
+            )
+            if group and boundary:
+                self._flush(group_kind, group)
+                group, group_sids = [], set()
+            group_kind, horizon = kind, h
+            group.append((sid, payload, fut, t))
+            group_sids.add(sid)
+        if group:
+            self._flush(group_kind, group)

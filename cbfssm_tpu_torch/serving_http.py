@@ -1,5 +1,5 @@
 """Reference HTTP transport for the port's serving stack (stdlib only;
-port of the predictor half of ``cbfssm_tpu/serving_http.py``).
+port of ``cbfssm_tpu/serving_http.py``).
 
 ``http.server`` + ``json``, no third-party dependency: how a socket
 layer plugs into :class:`~cbfssm_tpu_torch.serving.MicroBatcher`. A
@@ -7,7 +7,12 @@ deployment with its own gRPC/asyncio stack can treat it as documentation
 that runs; one without can use it as it is
 (``python -m cbfssm_tpu_torch serve <dir>``). The routes, status codes,
 JSON field names and error strings are the JAX module's, so a client of
-one talks to the other:
+one talks to the other. Two servers share the plumbing:
+:class:`PredictionServer` (free-running prediction through a
+MicroBatcher) and :class:`FilterServer` (online-estimation sessions
+through a :class:`~cbfssm_tpu_torch.serving.FilterBatcher` and a
+FilterPool; see its docstring for the session routes). The predictor
+routes:
 
   GET  /healthz     -> {"ok": true}
   GET  /v1/meta     -> model dims / seq_len / batching parameters
@@ -29,15 +34,15 @@ one talks to the other:
 Threading model: each connection runs on its own handler thread
 (``ThreadingHTTPServer``) and blocks on its request's Future, while the
 single MicroBatcher dispatcher thread coalesces concurrent requests into
-batched dispatches and does all the device work. Dispatch ``k`` draws
-its noise from the generator seed ``serving.fold_seed(seed, k)`` (the
-JAX package folds ``k`` into a threefry key instead, so the two
-packages' replies differ in their noise).
+batched dispatches and does all the device work (a FilterBatcher's
+dispatcher for the FilterServer). Dispatch ``k`` draws its noise from
+the generator seed ``serving.fold_seed(seed, k)``, pool tick ``t`` from
+``fold_seed(seed, t)`` (the JAX package folds ``k`` or ``t`` into a
+threefry key instead, so the two packages' replies differ in their
+noise; their filter state snapshots restore into each other).
 
 Not ported here: ``ExportedBatchPredictor`` (serving an exported
-artifact, ROADMAP A5.4) and the filter-session server ``FilterServer``
-with its ``/v1/sessions`` and ``/v1/state`` routes and state helpers
-(A5.1).
+artifact, ROADMAP A5.4).
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from cbfssm_tpu_torch.serving import MicroBatcher, params_from_leaves, params_to_leaves
+from cbfssm_tpu_torch.serving import (FilterBatcher, MicroBatcher, params_from_leaves,
+                                      params_to_leaves)
 
 # Request bodies larger than this are rejected with 413 instead of
 # being buffered: a predict request is two [T, d] float arrays, so
@@ -230,9 +236,10 @@ class _JSONHandler(BaseHTTPRequestHandler):
         self._send(code, {"error": msg}, extra_headers=extra_headers)
 
     def _require_auth(self) -> bool:
-        """Bearer-token gate for the state-mutating routes (every POST).
-        No-op unless the server was built with ``auth_token``: the
-        loopback default needs none, a non-loopback bind should set one.
+        """Bearer-token gate for the state-mutating and state-leaking
+        routes (every POST / DELETE, and GET /v1/state). No-op unless the
+        server was built with ``auth_token``: the loopback default needs
+        none, a non-loopback bind should set one.
         Constant-time compare; replies 401 + WWW-Authenticate on
         mismatch and returns False (the caller returns immediately)."""
         token = self.server.app.auth_token
@@ -453,14 +460,60 @@ def post_predict_npz(base_url: str, u, y, timeout: float | None = None,
         return {k: z[k] for k in z.files}
 
 
+def get_state_npz(base_url: str, timeout: float | None = None,
+                  auth_token: str | None = None) -> bytes:
+    """Fetch a :class:`FilterServer`'s whole-fleet failover snapshot as
+    an opaque binary blob (GET /v1/state with ``Accept:
+    application/x-npz``). Pass it unchanged to :func:`post_state_npz` on
+    a standby of either package; the binary form skips the JSON float
+    text of the fleet ensemble."""
+    import urllib.request
+
+    req = urllib.request.Request(base_url.rstrip("/") + "/v1/state")
+    req.add_header("Accept", NPZ_CONTENT_TYPE)
+    if auth_token is not None:
+        req.add_header("Authorization", f"Bearer {auth_token}")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        ctype = r.headers.get("Content-Type", "").split(";")[0].strip()
+        if ctype.lower() != NPZ_CONTENT_TYPE:
+            # a server (or a proxy) that ignores Accept replies JSON;
+            # shipping that blob on would fail on the standby with a
+            # misleading "not a valid .npz" 400
+            raise RuntimeError(
+                f"server returned {ctype or 'no Content-Type'} instead of "
+                f"{NPZ_CONTENT_TYPE}; the primary does not support binary "
+                "snapshots — fall back to the JSON /v1/state path")
+        return r.read()
+
+
+def post_state_npz(base_url: str, blob: bytes,
+                   timeout: float | None = None,
+                   auth_token: str | None = None) -> None:
+    """Restore a :func:`get_state_npz` blob into a standby
+    :class:`FilterServer` (POST /v1/state, binary body). Raises
+    ``urllib.error.HTTPError`` on a rejected snapshot (400: shape or
+    table mismatch with the standby's pool)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base_url.rstrip("/") + "/v1/state", method="POST", data=blob,
+    )
+    req.add_header("Content-Type", NPZ_CONTENT_TYPE)
+    if auth_token is not None:
+        req.add_header("Authorization", f"Bearer {auth_token}")
+    with urllib.request.urlopen(req, timeout=timeout):
+        pass
+
+
 def post_params_npz(base_url: str, params, timeout: float | None = None,
                     auth_token: str | None = None) -> None:
     """Hot-swap a server's checkpoint: POST /v1/params with the params'
     leaves as an .npz (``p0..pN`` in the JAX package's flatten order and
     layout, :func:`~cbfssm_tpu_torch.serving.params_to_leaves`; a
     sequence of arrays already in that order is sent as it is), which a
-    server of either package accepts. In-flight requests see the old or
-    the new params, never a mix. Raises ``urllib.error.HTTPError`` on a
+    server of either package accepts, a :class:`FilterServer` too (its
+    sessions keep their state). In-flight requests see the old or the
+    new params, never a mix. Raises ``urllib.error.HTTPError`` on a
     rejected checkpoint (400: wrong shapes/dtypes/structure)."""
     import io
     import urllib.request
@@ -578,8 +631,8 @@ class _Handler(_JSONHandler):
 
 
 class _ServerBase:
-    """Listener lifecycle of :class:`PredictionServer` (and of the
-    filter-session server, when it is ported): bind, transport counters, background/
+    """Listener lifecycle of :class:`PredictionServer` and
+    :class:`FilterServer`: bind, transport counters, background/
     foreground serve, and the ordered shutdown (stop accepting first,
     then drain the batcher so in-flight futures resolve before handler
     threads are abandoned). Subclasses set ``_handler_cls`` /
@@ -719,3 +772,310 @@ class PredictionServer(_ServerBase):
             "max_wait_ms": self.batcher.max_wait * 1e3,
         }
 
+
+
+class _FilterHandler(_JSONHandler):
+    """Online-estimation session endpoints (see :class:`FilterServer`)."""
+
+    def _route(self):
+        """('sessions',) | ('session_op', sid, op) | None."""
+        parts = self.path.rstrip("/").split("/")
+        if parts[:3] == ["", "v1", "sessions"]:
+            if len(parts) == 3:
+                return ("sessions",)
+            if len(parts) in (4, 5) and parts[3].isdigit():
+                return ("session_op", int(parts[3]),
+                        parts[4] if len(parts) == 5 else None)
+        return None
+
+    def do_GET(self):  # noqa: N802
+        app = self.server.app
+        app._count("http_requests")
+        if self.path == "/healthz":
+            self._send(200, {"ok": True})
+        elif self.path == "/v1/meta":
+            self._send(200, app.meta())
+        elif self.path == "/v1/stats":
+            self._send(200, app.stats())
+        elif self.path == "/v1/state":
+            # the snapshot holds the whole fleet's state: token-gated
+            # like the mutating routes
+            if not self._require_auth():
+                return
+            if self._accepts_npz():
+                self._resolve(app.batcher.state,
+                              encode=app._encode_state_npz, binary=True)
+            else:
+                self._resolve(app.batcher.state, encode=app._encode_state)
+        elif self.path == "/metrics":
+            self._send_metrics()
+        else:
+            self._fail(404, f"unknown path {self.path!r} (try /healthz, "
+                            "/v1/meta, /v1/stats, /v1/state, /v1/sessions, "
+                            "/metrics)")
+
+    def do_DELETE(self):  # noqa: N802
+        app = self.server.app
+        app._count("http_requests")
+        if not self._require_auth():
+            return
+        route = self._route()
+        if not route or route[0] != "session_op" or route[2] is not None:
+            self._fail(404, f"unknown path {self.path!r} "
+                            "(try DELETE /v1/sessions/<sid>)")
+            return
+        self._resolve(app.batcher.detach, route[1],
+                      encode=lambda _r: {"ok": True})
+
+    def do_POST(self):  # noqa: N802
+        app = self.server.app
+        app._count("http_requests")
+        if not self._require_auth():
+            return
+        if self.path == "/v1/params":
+            # fleet checkpoint hot-swap: sessions keep their state; the
+            # batcher lands the swap between dispatches
+            tree = self._read_params_npz(app.batcher.pool.params)
+            if tree is None:
+                return
+            self._resolve(app.batcher.reload_params, tree,
+                          encode=lambda _r: {"ok": True})
+            return
+        if self.path == "/v1/state":
+            binary = self._body_is_npz()
+            # a fleet snapshot's size scales with the pool: the server's
+            # own bound
+            limit = app.state_body_limit
+            req = (self._read_npz("empty body (send an .npz state "
+                                  "snapshot)", limit)
+                   if binary else self._read_json(limit))
+            if req is None:
+                return
+            try:
+                state = (app._decode_state_npz(req) if binary
+                         else app._decode_state(req))
+            except (KeyError, TypeError, ValueError, AttributeError) as e:
+                # AttributeError: wrong-typed fields ("slots" a list)
+                self._fail(400, f"bad state snapshot: {e}")
+                return
+            self._resolve(app.batcher.load_state, state,
+                          encode=lambda _r: {"ok": True})
+            return
+        route = self._route()
+        if route is None:
+            self._fail(404, f"unknown path {self.path!r} (try "
+                            "/v1/sessions[/<sid>/{step,forecast,replay}], "
+                            "/v1/state, or /v1/params)")
+            return
+        req = self._read_json()
+        if req is None:
+            return
+        if route[0] == "sessions":
+            try:
+                submit = app.batcher.attach(req["u_prefix"], req["y_prefix"])
+            except KeyError:
+                self._fail(400, "body needs 'u_prefix' and 'y_prefix'")
+                return
+            except (ValueError, TypeError) as e:
+                self._fail(400, str(e))
+                return
+            except RuntimeError as e:  # closed
+                self._fail(503, str(e))
+                return
+            self._resolve_fut(submit, encode=lambda sid: {"sid": sid})
+            return
+        _, sid, op = route
+        fields = {"step": ("u_prev", "y_new"), "forecast": ("u_future",),
+                  "replay": ("u", "y")}.get(op)
+        if fields is None:
+            self._fail(404, f"unknown session operation {op!r} "
+                            "(try step, forecast, replay)")
+            return
+        try:
+            args = [req[f] for f in fields]
+        except KeyError:
+            self._fail(400, f"body needs {' and '.join(repr(f) for f in fields)}")
+            return
+        self._resolve(getattr(app.batcher, op), sid, *args)
+
+    def _resolve(self, submit_fn, *args, encode=None, binary=False):
+        """Submit on the batcher, mapping submit-side errors to client
+        codes, then block on the future."""
+        try:
+            fut = submit_fn(*args)
+        except (ValueError, TypeError) as e:
+            self._fail(400, str(e))
+            return
+        except RuntimeError as e:  # batcher closed
+            self._fail(503, str(e))
+            return
+        self._resolve_fut(fut, encode=encode, binary=binary)
+
+    def _resolve_fut(self, fut, encode=None, binary=False):
+        app = self.server.app
+        try:
+            out = fut.result(timeout=app.request_timeout)
+        except KeyError as e:  # unknown session at dispatch
+            self._fail(404, str(e.args[0]) if e.args else "unknown session")
+            return
+        except RuntimeError as e:
+            # pool full (attach) or closed before dispatch: retryable
+            self._fail(503, str(e))
+            return
+        except ValueError as e:
+            # content only the pool can judge (a snapshot of another
+            # capacity): client-side and permanent, so 400, not 5xx
+            self._fail(400, str(e))
+            return
+        except Exception as e:
+            self._fail(500, f"{type(e).__name__}: {e}")
+            return
+        if binary:
+            self._send_npz(encode(out))
+        elif encode is not None:
+            self._send(200, encode(out))
+        else:  # (mean, var) numpy pairs from step / forecast / replay
+            mean, var = out
+            self._send(200, {"mean": np.asarray(mean).tolist(),
+                             "var": np.asarray(var).tolist()})
+
+
+class FilterServer(_ServerBase):
+    """Online state estimation over HTTP: one listener + one
+    :class:`~cbfssm_tpu_torch.serving.FilterBatcher` around a
+    :class:`~cbfssm_tpu_torch.serving.FilterPool`.
+
+    Each estimator drives its own session with JSON requests; concurrent
+    step / forecast / replay requests of different sessions coalesce
+    into single pool calls. Protocol (the JAX server's):
+
+      POST   /v1/sessions                {"u_prefix": [[...] x R],
+                                          "y_prefix": [[...] x R]}
+                                         -> {"sid": n}
+      POST   /v1/sessions/<sid>/step     {"u_prev": [du], "y_new": [dy]}
+                                         -> {"mean": [dy], "var": [dy]}
+      POST   /v1/sessions/<sid>/forecast {"u_future": [[...] x H]}
+                                         -> {"mean"/"var": [[...] x H]}
+      POST   /v1/sessions/<sid>/replay   {"u": [[...] x K], "y": ...}
+                                         -> {"mean"/"var": [[...] x K]}
+      DELETE /v1/sessions/<sid>          -> {"ok": true}
+      GET    /v1/state                   -> whole-fleet failover snapshot
+                                            (Accept: application/x-npz
+                                            for the binary form)
+      POST   /v1/state                   <- restore it (JSON or .npz)
+      POST   /v1/params                  <- checkpoint hot-swap (.npz of
+                                            leaves p0..pN; sessions keep
+                                            their state)
+      GET    /healthz | /v1/meta | /v1/stats | /metrics
+
+    Errors: bad shapes or JSON 400, unknown session 404, oversized body
+    413, pool full or shutting down 503. The snapshot is the pool's
+    ``state`` (ensemble, tick, session table, base key uint32[2]); a
+    standby of either package restores it, also one built with another
+    seed. Use the binary form (:func:`get_state_npz` /
+    :func:`post_state_npz`) for large fleets.
+    """
+
+    _handler_cls = _FilterHandler
+    _thread_name = "cbfssm-filter-http"
+
+    def __init__(self, pool, host: str = "127.0.0.1", port: int = 0,
+                 *, max_wait_ms: float = 2.0, queue_size: int = 1024,
+                 request_timeout: float | None = None,
+                 auth_token: str | None = None):
+        super().__init__(host, port, request_timeout, lambda: FilterBatcher(
+            pool, max_wait_ms=max_wait_ms, queue_size=queue_size,
+        ), auth_token=auth_token)
+
+    @staticmethod
+    def _encode_state(state) -> dict:
+        x, tick, slots, next_sid, key = state
+        x = np.asarray(x)
+        key = np.asarray(key)
+        return {
+            "x": x.tolist(), "dtype": x.dtype.name, "tick": int(tick),
+            "slots": {str(sid): int(slot) for sid, slot in slots.items()},
+            "next_sid": int(next_sid),
+            "key": key.tolist(), "key_dtype": key.dtype.name,
+        }
+
+    @staticmethod
+    def _decode_state(obj):
+        slots = {int(s): int(v) for s, v in obj["slots"].items()}
+        if len(slots) != len(obj["slots"]):
+            # int() aliases keys like "5" / "+5" onto one sid
+            raise ValueError("duplicate session ids in snapshot")
+        state = (
+            np.asarray(obj["x"], dtype=np.dtype(obj["dtype"])),
+            int(obj["tick"]),
+            slots,
+            int(obj["next_sid"]),
+        )
+        if "key" in obj:  # pre-key snapshots: 4-tuple keeps the pool's key
+            state += (np.asarray(
+                obj["key"], dtype=np.dtype(obj.get("key_dtype", "uint32"))
+            ),)
+        return state
+
+    @staticmethod
+    def _encode_state_npz(state) -> dict:
+        """The snapshot as arrays for np.savez: the ensemble in its own
+        dtype, the session table as two parallel int64 vectors."""
+        x, tick, slots, next_sid, key = state
+        n = len(slots)
+        return {
+            "x": np.asarray(x),
+            "tick": np.int64(tick),
+            "slot_sids": np.fromiter(slots.keys(), np.int64, count=n),
+            "slot_rows": np.fromiter(slots.values(), np.int64, count=n),
+            "next_sid": np.int64(next_sid),
+            "base_key": np.asarray(key),
+        }
+
+    @staticmethod
+    def _decode_state_npz(obj):
+        sids = np.asarray(obj["slot_sids"], dtype=np.int64).ravel()
+        rows = np.asarray(obj["slot_rows"], dtype=np.int64).ravel()
+        if sids.shape != rows.shape:
+            raise ValueError("slot_sids/slot_rows length mismatch")
+        if len(np.unique(sids)) != len(sids):
+            raise ValueError("duplicate session ids in snapshot")
+        state = (
+            np.asarray(obj["x"]),
+            int(obj["tick"]),
+            {int(s): int(v) for s, v in zip(sids, rows)},
+            int(obj["next_sid"]),
+        )
+        if "base_key" in obj:  # pre-key snapshots keep the pool's key
+            state += (np.asarray(obj["base_key"]),)
+        return state
+
+    @property
+    def state_body_limit(self) -> int:
+        """Body cap of POST /v1/state: the generic cap plus 8x the raw
+        ensemble (capacity x S x dx), which bounds its JSON float text
+        (~20 bytes a float) and its .npz with margin."""
+        pool = self.batcher.pool
+        m = pool.model
+        raw = pool.capacity * int(m.samples) * int(m.dim_x) * m.np_dtype.itemsize
+        return MAX_BODY_BYTES + 8 * raw
+
+    def meta(self) -> dict:
+        pool = self.batcher.pool
+        model = pool.model
+        return {
+            "server": "FilterServer",
+            "model": type(model).__name__,
+            "capacity": pool.capacity,
+            "active": pool.active,
+            "recog_len": int(model.config.recog_len),
+            "dim_u": int(model.dim_u),
+            "dim_y": int(model.dim_y),
+            "dtype": model.np_dtype.name,
+            "max_wait_ms": self.batcher.max_wait * 1e3,
+        }
+
+    def stats(self) -> dict:
+        s = super().stats()
+        s["active_sessions"] = self.batcher.pool.active
+        return s

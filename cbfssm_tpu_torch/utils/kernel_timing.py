@@ -37,6 +37,16 @@ MODEL_SHAPES = {
     "sarcos forward": (100, 100, 21, 14),
 }
 
+# Shapes (N, M, DI, D) of one online-filter tick (``gp_predict`` only):
+# the RoboMove CBFSSMHALF at S 50 for a fleet of 1,024 sessions, of 32,
+# and one stream; Voliro predicts its force GP once per session (N = B).
+FILTER_SHAPES = {
+    "fleet 1024": (51200, 100, 6, 4),
+    "fleet 32": (1600, 100, 6, 4),
+    "one stream": (50, 100, 6, 4),
+    "voliro pool 8": (8, 20, 12, 3),
+}
+
 
 def kernel_inputs(rng, n, m, di, d, dtype, device):
     """Random well-conditioned predict operands (the construction of the

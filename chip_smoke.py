@@ -133,15 +133,49 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    equal to the direct ``BucketedPredictor`` call of its dispatch
    (generator seed ``fold_seed(0, k)``), 399 launches a dispatch;
    request latencies and the hot-swap time; (e) ``serve DIR --port 0``
-   in a subprocess: one request, then SIGTERM must end it with exit 0.
+   in a subprocess: one request, then SIGTERM must end it with exit 0;
+10. online filtering, with CBFSSMHALF ('rnn') at the RoboMove phase-0
+   width (S 50, M 100, dim_x 4, float32, ``gp_impl='pallas'``, phase 6's
+   trained params) on RoboMove test windows: (a) ``StreamingFilter(batch=1,
+   replay_buckets=(16, 64))``: start, 64 updates, a 50-step forecast,
+   and a 64-step replay from the restored start state, equal to the
+   updates bitwise (float32) and at rtol 1e-12 in float64; (b) a
+   ``FilterPool(capacity=32)`` (N = 1,600 rows a tick): 32 attaches, 20
+   lockstep ticks equal to a ``StreamingFilter(batch=32)`` from the same
+   ensemble, a hold tick, a ragged replay (lengths uniform in [1, 64],
+   seed 0) equal to the tick-by-tick schedule, a 50-step forecast, the
+   state restored into a pool of another seed with the next 3 ticks
+   equal, and the kernel path against ``solve_free`` in float64 (rtol
+   1e-8); (c) an in-process ``FilterServer`` answering 16 client threads
+   x 20 ``POST /v1/sessions/<sid>/step`` under a 10 ms window, every
+   reply equal to a bare pool replaying the recorded dispatches; ``GET
+   /v1/state`` in JSON and ``.npz`` restored into a standby of another
+   seed whose next tick is equal; a ``/v1/params`` swap that keeps the
+   sessions; (d) a ``FilterServer(capacity=1024)`` (N = 51,200 rows)
+   filled by ``POST /v1/state`` of (b)'s ensembles tiled 32 times, the
+   four ``/v1/state`` transfers timed, 5 ticks of all 1,024 sessions,
+   every reply equal to a bare pool loaded with the same snapshot and
+   replaying the recorded dispatches, and ``gp_predict`` against its plain version at the filter shapes
+   (``kernel_timing.FILTER_SHAPES``, N = 51,200 among them) timed by
+   graph replay beside its bound; (e) ``serve --filter DIR --port 0`` in a
+   subprocess: an attach and a step, then SIGTERM must give exit 0; on a
+   CBFSSM directory ``serve --filter`` must exit 2; (f) Voliro
+   (run_voliro.py's config with ``filter_dt`` 0.01, on a synthetic flip
+   log): a ``StreamingFilter`` and a ``FilterPool(capacity=8)``, a replay
+   equal to the updates, the kernel path against ``solve_free`` in
+   float64. Every tick launches ``gp_predict`` once, a forecast H times,
+   a replay chunk as often as its padded length; ``filter_init`` none.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
 four, phase 7's two (``voliro``: training, test loss and outputs;
 ``training_sarcos``), phase 8's two (``lanes``: the Sarcos seeds'
 training, test loss and outputs; ``sweep``) and phase 9's four
 (``cli_reproduce``, ``cli_eval``, ``http_serve``, and ``cli_serve``,
-counted by the subprocess itself): each sets the launch counts (the
-lane kernels' included) to 0 just before it and reads them just after,
+counted by the subprocess itself) and phase 10's six
+(``filter_stream``, ``filter_pool``, ``filter_http``,
+``filter_fleet_1024``, ``cli_serve_filter`` and ``filter_voliro``):
+each sets the launch counts of all four kernels to 0 just before it
+(``reset_launches``) and reads all four just after (``launch_counts``),
 and the kernels line lists them by path (``launches_by_path``;
 ``launches`` is their sum).
 
@@ -151,8 +185,10 @@ checks and times: ``ms`` is the graph-replayed device time at the
 recognition shape (float32, N = 12,800), ``ms_n1600`` the same at the
 forward shape (N = 1,600), each beside its bound (``bound_ms``,
 ``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure,
-``device_ms_f64`` has the same device times in float64, and
-``model_shapes`` the figures of phase 7's four shapes. The two lane
+``device_ms_f64`` has the same device times in float64,
+``model_shapes`` the figures of phase 7's four shapes, and for
+``gp_predict`` ``ms_n51200`` / ``bound_ms_n51200`` the 1,024-session
+fleet's shape and ``filter_shapes`` the figures of phase 10's four. The two lane
 kernels follow, with their figures at the Sarcos recognition shape of
 phase 8 (``ms_singles``: the same work as L single launches) and
 ``lane_shapes`` for all five.
@@ -203,6 +239,13 @@ LANE_SHAPES = {
 SWEEP_K_FACTOR = (1.0, 10.0, 50.0, 200.0)  # phase 8's RoboMove sweep
 SWEEP_STEPS = 4
 STEP_MS = {}  # median train steps, by path, for phase 8's comparison
+FILTER_TICKS = 64  # phase 10 (a): updates of the one stream, and its replayed backlog
+FORECAST_H = 50
+REPLAY_BUCKETS = (16, 64)
+FLEET, FLEET_TICKS = 32, 20  # (b)
+HTTP_CLIENTS, HTTP_TICKS, HTTP_WAIT_MS = 16, 20, 10.0  # (c)
+BIG_FLEET, BIG_FLEET_TICKS = 1024, 5  # (d)
+VOLIRO_POOL = 8  # (f)
 
 
 def fail(msg: str) -> None:
@@ -222,6 +265,40 @@ def sync():
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+COUNTERS = "(gp_predict, gp_predict_residuals, gp_predict_lanes, gp_predict_residuals_lanes)"
+
+
+def reset_launches():
+    """Sets the launch counts of all four kernel wrappers to 0."""
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+
+    sync()
+    fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
+    fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+
+
+def launch_counts() -> tuple:
+    """The launches of all four kernels (in the order of ``COUNTERS``)
+    since :func:`reset_launches`."""
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+
+    sync()
+    return (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
+            fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
+
+
+def read_launches(where: str, want, rule: str) -> tuple:
+    """The four launch counts since :func:`reset_launches`; fails unless
+    they equal ``want``: a 4-tuple, or the ``gp_predict`` count with
+    the other three kernels not launched."""
+    counts = launch_counts()
+    if isinstance(want, int):
+        want = (want, 0, 0, 0)
+    if counts != want:
+        fail(f"{where}: {COUNTERS} launches {counts} != {want} = {rule}")
+    return counts
 
 
 def bound(n, m, di, d, dtype: str, residuals: bool):
@@ -409,16 +486,13 @@ def serve_main_path(model, params, u_all, y_all, steps_per_chunk: int, where: st
     ``MicroBatcher`` from 4 threads, then one 40-row request (chunks of
     32 and 8). The launch counts go to 0 just before and are read just
     after: every dispatched chunk must launch ``gp_predict``
-    ``steps_per_chunk`` times, and ``gp_predict_residuals`` never runs.
-    Returns the ``gp_predict`` launches."""
-    from cbfssm_tpu_torch.ops import fused_predict as fp
+    ``steps_per_chunk`` times, and no other kernel runs. Returns the
+    four launch counts."""
     from cbfssm_tpu_torch.serving import BucketedPredictor, MicroBatcher
 
     bp = BucketedPredictor(model, params, SEQ_LEN, buckets=BUCKETS)
     bp(u_all[:1], y_all[:1])  # first request: cuBLAS / allocator set-up
-    sync()
-    fp.fused_predict.launches = 0
-    fp.fused_predict_residuals.launches = 0
+    reset_launches()
     n_req, n_threads = 40, 4
     results = [None] * n_req
     with MicroBatcher(bp, max_batch=32, max_wait_ms=5.0) as mb:
@@ -436,24 +510,20 @@ def serve_main_path(model, params, u_all, y_all, steps_per_chunk: int, where: st
             fail(f"{where}: MicroBatcher clients did not finish")
         stats = mb.stats()
     chunked = bp(u_all[:40], y_all[:40])  # 40 rows: chunks of 32 and 8
-    launches = fp.fused_predict.launches
-    residual_launches = fp.fused_predict_residuals.launches
-    if residual_launches != 0:
-        fail(f"{where}: serving launched gp_predict_residuals {residual_launches} times, want 0")
+    dispatches = stats["batches"] + 2
+    counts = read_launches(where, steps_per_chunk * dispatches,
+                           f"{steps_per_chunk} x {dispatches} dispatches")
+    launches = counts[0]
     for i, out in enumerate(results):
         if out is None:
             fail(f"{where}: request {i} got no result")
         check_output(out, 1, f"{where} MicroBatcher request {i}")
     check_output(chunked, 40, f"{where} chunked request")
-    dispatches = stats["batches"] + 2
-    if launches != steps_per_chunk * dispatches:
-        fail(f"{where}: kernel launches {launches} != {steps_per_chunk} x {dispatches} "
-             "dispatches")
     print(f"serving {where}: {n_req} MicroBatcher requests from {n_threads} threads in "
           f"{stats['batches']} batches (max {stats['max_batch_seen']}), one 40-row "
           f"request in 2 chunks; {launches} kernel launches = {steps_per_chunk} x "
           f"{dispatches} dispatches; outputs finite", flush=True)
-    return launches
+    return counts
 
 
 def predict_parity(make_model, params, u8, y8, where: str, seq_len: int = SEQ_LEN):
@@ -531,10 +601,10 @@ def phase_serving(card: str):
 
     model = make_model("float32", "pallas")
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
-    launches = serve_main_path(model, params, u_all, y_all, STEPS_PER_CHUNK, "CBFSSM")
+    counts = serve_main_path(model, params, u_all, y_all, STEPS_PER_CHUNK, "CBFSSM")
     predict_parity(make_model, params, u_all[:8], y_all[:8], "CBFSSM")
     request_latency(make_model, params, u_all, y_all, ("pallas", "solve_free"), card, "CBFSSM")
-    return launches
+    return counts
 
 
 def timed_train(model, model_dir, ds):
@@ -633,14 +703,14 @@ def train_main_path(model, ds, steps_per_batch: int, where: str):
     Adam steps, 3 test batches). The launch counts go to 0 just before and are read
     just after: each step must launch ``gp_predict_residuals``
     ``steps_per_batch`` times and each test batch ``gp_predict`` as
-    often. Losses must be finite, and both checkpoints must restore.
-    Returns the ``timed_train`` run and the two counts."""
+    often, and no lane kernel runs. Losses must be finite, and both
+    checkpoints must restore. Returns the ``timed_train`` run and the
+    four launch counts."""
     import tempfile
 
     import numpy as np
     import torch
 
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.training import Trainer, checkpoint
 
     batch = int(model.config.batch_size)
@@ -648,23 +718,18 @@ def train_main_path(model, ds, steps_per_batch: int, where: str):
     test_batches = -(-ds.test_in_batch.shape[0] // batch)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
-        fp.fused_predict.launches = 0
-        fp.fused_predict_residuals.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run = timed_train(model, model_dir, ds)
         epoch_s = time.perf_counter() - t0
-        residual_launches = fp.fused_predict_residuals.launches
-        launches = fp.fused_predict.launches
+        counts = read_launches(
+            where, (test_batches * steps_per_batch, steps * steps_per_batch, 0, 0),
+            f"({test_batches} test batches, {steps} steps) x {steps_per_batch}, no lanes")
+        launches, residual_launches = counts[:2]
         trainer = run[0]
         if not (np.isfinite(trainer.train_all).all() and np.isfinite(trainer.test_all).all()):
             fail(f"{where}: non-finite losses: train {trainer.train_all}, "
                  f"test {trainer.test_all}")
-        if residual_launches != steps * steps_per_batch:
-            fail(f"{where}: gp_predict_residuals launches {residual_launches} != {steps} steps "
-                 f"x {steps_per_batch}")
-        if launches != test_batches * steps_per_batch:
-            fail(f"{where}: gp_predict launches {launches} != {test_batches} test batches x "
-                 f"{steps_per_batch}")
         for name in (checkpoint.BEST, checkpoint.LAST):
             if not checkpoint.exists(f"{model_dir}/{name}"):
                 fail(f"{where}: {name} was not written")
@@ -678,7 +743,7 @@ def train_main_path(model, ds, steps_per_batch: int, where: str):
           f"{trainer.test_all[0]!r}; gp_predict_residuals launches {residual_launches} = "
           f"{steps} x {steps_per_batch}, gp_predict launches {launches} = {test_batches} x "
           f"{steps_per_batch}; best.ckpt and model.ckpt restore", flush=True)
-    return run, launches, residual_launches
+    return run, counts
 
 
 def gradient_parity(make_model, params0, ds, where: str, batch: int = BATCH,
@@ -759,8 +824,8 @@ def phase_training(card: str):
         return CBFSSM(config(dtype, impl), device=DEVICE)
 
     ds = robomove()
-    run, launches, residual_launches = train_main_path(
-        make_model("float32", "pallas"), ds, STEPS_PER_CHUNK, "CBFSSM")
+    run, counts = train_main_path(make_model("float32", "pallas"), ds, STEPS_PER_CHUNK,
+                                  "CBFSSM")
     gradient_parity(make_model, run[0].params.detach(), ds, "CBFSSM")
     # step time and peak memory, float32, B = 32: the main-path epoch
     # above and one more of gp_impl='solve_free'
@@ -768,7 +833,7 @@ def phase_training(card: str):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
         plain = timed_train(make_model("float32", "solve_free"), model_dir, ds)
     report_steps(f"CBFSSM gp_impl=solve_free B={BATCH} float32", plain, card)
-    return launches, residual_launches
+    return counts
 
 
 def recognition_parity(params):
@@ -810,8 +875,8 @@ def phase_other_models(card: str):
     2, so var_y of length 2): serving, one training epoch, parity of the
     two gp_impl paths, step time, latency; then the recognition nets in
     float32 on the card against float64 on the CPU. Returns the launch
-    counts by path."""
-    import numpy as np
+    counts by path and the trained CBFSSMHALF params (phase 10 serves
+    them)."""
     import torch
 
     from cbfssm_tpu_torch.models import CBFSSMHALF, PRSSM
@@ -821,25 +886,24 @@ def phase_other_models(card: str):
     by_path, half_params = {}, None
     for name, cls in (("cbfssmhalf", CBFSSMHALF), ("prssm", PRSSM)):
         def make_model(dtype, impl, cls=cls):
-            return cls(config(dtype, impl, var_y=np.asarray([1.0**2] * 2), recog_model="rnn"),
-                       device=DEVICE)
+            return rnn_model(cls, dtype, impl)
 
         where = cls.__name__
         model = make_model("float32", "pallas")
         params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
         serve = serve_main_path(model, params, u_all, y_all, FORWARD_STEPS, where)
-        run, launches, residual_launches = train_main_path(model, ds, FORWARD_STEPS, where)
+        run, counts = train_main_path(model, ds, FORWARD_STEPS, where)
         trained = run[0].params.detach()
         gradient_parity(make_model, trained, ds, where)
         predict_parity(make_model, trained, u_all[:8], y_all[:8], where)
         report_steps(f"{where} gp_impl=pallas B={BATCH} float32", run, card)
         request_latency(make_model, trained, u_all, y_all, ("pallas",), card, where)
-        by_path[f"serving_{name}"] = (serve, 0)
-        by_path[f"training_{name}"] = (launches, residual_launches)
+        by_path[f"serving_{name}"] = serve
+        by_path[f"training_{name}"] = counts
         if cls is CBFSSMHALF:
             half_params = trained
     recognition_parity(half_params)
-    return by_path
+    return by_path, half_params
 
 
 def phase_model_kernels():
@@ -946,7 +1010,7 @@ def phase_voliro(card: str, data_dir: str):
     physics), each test batch and each ``OutputsVoliro`` predict over a
     log of T steps ``gp_predict`` 1 + T times. Then the parity of the two
     gp_impl paths, step time and peak memory (10 steps on one batch), and
-    one profiled step. Returns the launches (value, residual)."""
+    one profiled step. Returns the four launch counts."""
     import importlib.util
     import os
     import tempfile
@@ -957,7 +1021,6 @@ def phase_voliro(card: str, data_dir: str):
 
     from cbfssm_tpu_torch import run_voliro
     from cbfssm_tpu_torch.models import Voliro
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.outputs import Outputs, OutputsVoliro
 
     def make_model(dtype, impl):
@@ -972,16 +1035,13 @@ def phase_voliro(card: str, data_dir: str):
         Outputs.training_stats = OutputsVoliro._plot_forces = lambda self, *a: None
     try:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
-            fp.fused_predict.launches = 0
-            fp.fused_predict_residuals.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             outputs = run_voliro.main(
                 root=root, epochs=1, data_dir=data_dir,
                 config_overrides={"gp_impl": "pallas", "dtype": "float32"}, device=DEVICE)
-            sync()
+            counts = launch_counts()
             run_s = time.perf_counter() - t0
-            launches = fp.fused_predict.launches
-            residual_launches = fp.fused_predict_residuals.launches
             if plots and os.path.getsize(os.path.join(root, "voliro_forces.pdf")) == 0:
                 fail("Voliro: voliro_forces.pdf is empty")
             forces = scipy.io.loadmat(os.path.join(root, "voliro_forces.mat"))
@@ -994,12 +1054,11 @@ def phase_voliro(card: str, data_dir: str):
     test_batches = -(-ds.test_in_batch.shape[0] // batch)
     logs = (ds.train_in.shape[1] + ds.test_in.shape[1], ds.test_in2.shape[1])
     want_value = test_batches * (1 + seq_len) + sum(1 + t for t in logs)
-    if residual_launches != steps * (1 + seq_len):
-        fail(f"Voliro: gp_predict_residuals launches {residual_launches} != {steps} steps x "
-             f"{1 + seq_len}")
-    if launches != want_value:
-        fail(f"Voliro: gp_predict launches {launches} != {test_batches} test batches x "
-             f"{1 + seq_len} + OutputsVoliro predicts over logs of {logs} steps (1 + T each)")
+    if counts != (want_value, steps * (1 + seq_len), 0, 0):
+        fail(f"Voliro: {COUNTERS} launches {counts} != ({want_value}, {steps * (1 + seq_len)}, "
+             f"0, 0): {test_batches} test batches x {1 + seq_len} + OutputsVoliro predicts over "
+             f"logs of {logs} steps (1 + T each), {steps} steps x {1 + seq_len}")
+    launches, residual_launches = counts[:2]
     for tag, t_len in zip(("train", "transfer"), logs):
         for k in ("force_torque", "ft_mean", "ft_var"):
             a = forces[f"{k}_{tag}"]
@@ -1028,7 +1087,7 @@ def phase_voliro(card: str, data_dir: str):
             torch.Generator(device=DEVICE).manual_seed(5))
     report_steps(f"Voliro gp_impl=pallas B={batch} float32 (10 steps on one batch)",
                  timed_steps(trainer, args, 10), card)
-    return launches, residual_launches
+    return counts
 
 
 def phase_sarcos(card: str, data_dir: str):
@@ -1040,7 +1099,7 @@ def phase_sarcos(card: str, data_dir: str):
     ``gp_predict_residuals`` 281 times (2 x 16 blocked recognition steps
     + 249 forward steps), each test batch ``gp_predict`` as often. Then
     the parity of the two gp_impl paths, step time, peak memory and one
-    profiled step. Returns the launches (value, residual)."""
+    profiled step. Returns the four launch counts."""
     from cbfssm_tpu_torch import run_sarcos
     from cbfssm_tpu_torch.data import Sarcos
     from cbfssm_tpu_torch.models import CBFSSM
@@ -1056,15 +1115,14 @@ def phase_sarcos(card: str, data_dir: str):
     ds.train_in_batch = ds.train_in_batch[:SARCOS_STEPS * batch]
     ds.train_out_batch = ds.train_out_batch[:SARCOS_STEPS * batch]
     per_batch = 2 * recog_len + seq_len - 1
-    run, launches, residual_launches = train_main_path(make_model("float32", "pallas"), ds,
-                                                       per_batch, "Sarcos")
+    run, counts = train_main_path(make_model("float32", "pallas"), ds, per_batch, "Sarcos")
     params = run[0].params.detach()
     gradient_parity(make_model, params, ds, "Sarcos", batch=batch, seq_len=seq_len,
                     f32_vs_f64=True)
     predict_parity(make_model, params, ds.test_in_batch[:8], ds.test_out_batch[:8], "Sarcos",
                    seq_len=seq_len)
     STEP_MS["sarcos"] = report_steps(f"Sarcos gp_impl=pallas B={batch} float32", run, card)
-    return launches, residual_launches
+    return counts
 
 
 def phase_voliro_sarcos(card: str):
@@ -1223,17 +1281,12 @@ def phase_sarcos_seeds(card: str, data_dir: str):
     from cbfssm_tpu_torch import run_sarcos
     from cbfssm_tpu_torch.data import Sarcos
     from cbfssm_tpu_torch.models import CBFSSM
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.outputs import Outputs
     from cbfssm_tpu_torch.outputs.summary import vmapped_reproduction
     from cbfssm_tpu_torch.training import MultiSeedTrainer
 
     def make_model(dtype, impl):
         return CBFSSM(dict(run_sarcos.model_config, dtype=dtype, gp_impl=impl), device=DEVICE)
-
-    def counts():
-        return (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
-                fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
 
     seq_len, batch = run_sarcos.seq_len, run_sarcos.model_config["batch_size"]
     per_batch = 2 * run_sarcos.model_config["recog_len"] + seq_len - 1
@@ -1245,19 +1298,19 @@ def phase_sarcos_seeds(card: str, data_dir: str):
     step_fn, eval_fn = MultiSeedTrainer.train_step, MultiSeedTrainer._epoch_eval
 
     def timed_step(self, *args):
-        before = counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         out = step_fn(self, *args)
         sync()
         steps.append((1e3 * (time.perf_counter() - t0),
-                      tuple(a - b for a, b in zip(counts(), before))))
+                      tuple(a - b for a, b in zip(launch_counts(), before))))
         box["trainer"], box["args"] = self, args
         return out
 
     def counted_eval(self, *args):
-        before = counts()
+        before = launch_counts()
         out = eval_fn(self, *args)
-        evals.append(tuple(a - b for a, b in zip(counts(), before)))
+        evals.append(tuple(a - b for a, b in zip(launch_counts(), before)))
         return out
 
     plots = importlib.util.find_spec("matplotlib") is not None
@@ -1270,14 +1323,12 @@ def phase_sarcos_seeds(card: str, data_dir: str):
             sync()
             if DEVICE == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
-            fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             summary = vmapped_reproduction(make_model("float32", "pallas"), ds, root,
                                            SARCOS_SEEDS, 1)
-            sync()
+            launches = launch_counts()
             run_s = time.perf_counter() - t0
-            launches = counts()
             peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
             for it in range(SARCOS_SEEDS):
                 for f in ("mse.txt", "calibration.txt", "var_dump.txt"):
@@ -1341,7 +1392,6 @@ def phase_sweep(card: str):
     import numpy as np
 
     from cbfssm_tpu_torch.models import CBFSSM
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.training import SweepTrainer
 
     ds = robomove()
@@ -1361,14 +1411,11 @@ def phase_sweep(card: str):
             return out
 
         sweep.train_step = timed_step
-        fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
-        fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         sweep.train(ds, epochs=1)
-        sync()
+        launches = launch_counts()
         run_s = time.perf_counter() - t0
-        launches = (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
-                    fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
         with open(f"{model_dir}/sweep_best.json") as f:
             best = json.load(f)
     final = sweep.train_all[-1]
@@ -1523,29 +1570,29 @@ def _read_lines(stream, lines):
     lines.put(None)
 
 
-def cli_serve_subprocess(model_dir: str, u, y, direct, card: str) -> int:
-    """(e) ``serve <dir> --port 0`` in its own process through
-    ``__main__.main`` (the SIGTERM handler needs the main thread): the
-    banner, one JSON request (held against the direct call of dispatch 0
-    at float32 tolerance: another process), then SIGTERM must end it
-    with exit 0. Returns the ``gp_predict`` launches it printed."""
+def serve_subprocess(args: list, log_dir: str, where: str, use):
+    """``python -m cbfssm_tpu_torch <args> --port 0`` in its own process
+    through ``__main__.main`` (the SIGTERM handler needs the main
+    thread): waits for the banner with the address, calls
+    ``use(base_url)``, then SIGTERM must end the process with exit 0
+    after 'shutting down'. Returns (banner, seconds to the banner,
+    ``use``'s result, the four launch counts the process printed)."""
     import os
     import queue
     import signal
-
-    import numpy as np
 
     prog = ("import sys\n"
             "from cbfssm_tpu_torch.__main__ import main\n"
             "from cbfssm_tpu_torch.ops import fused_predict as fp\n"
             "rc = main(sys.argv[1:])\n"
             "print('launches', fp.fused_predict.launches, fp.fused_predict_residuals.launches,"
+            " fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches,"
             " flush=True)\n"
             "sys.exit(rc)\n")
     t0 = time.perf_counter()
-    err_log = open(os.path.join(model_dir, "serve_stderr.txt"), "w+")
+    err_log = open(os.path.join(log_dir, "serve_stderr.txt"), "w+")
     dev = [] if DEVICE == "cuda" else ["--device", DEVICE]  # a CPU rehearsal passes its device
-    proc = subprocess.Popen([sys.executable, "-c", prog, "serve", model_dir, "--port", "0", *dev],
+    proc = subprocess.Popen([sys.executable, "-c", prog, *args, "--port", "0", *dev],
                             cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
 
     def stderr_tail():
@@ -1562,9 +1609,33 @@ def cli_serve_subprocess(model_dir: str, u, y, direct, card: str) -> int:
         if not banner or "http://" not in banner:
             proc.kill()
             proc.wait(timeout=60)
-            fail(f"CLI serve: no banner ({banner!r}); stderr: {stderr_tail()}")
+            fail(f"{where}: no banner ({banner!r}); stderr: {stderr_tail()}")
         ready_s = time.perf_counter() - t0
-        base = banner.strip().rsplit(" ", 1)[1]
+        result = use(banner.strip().rsplit(" ", 1)[1])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        rest = []
+        while (line := lines.get(timeout=30)) is not None:
+            rest.append(line)
+        if rc != 0 or not any("shutting down" in ln for ln in rest):
+            fail(f"{where}: exit {rc} after SIGTERM; stdout {rest}; stderr {stderr_tail()}")
+        counts = next(ln for ln in rest if ln.startswith("launches")).split()[1:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        err_log.close()
+    return banner.strip(), ready_s, result, tuple(int(c) for c in counts)
+
+
+def cli_serve_subprocess(model_dir: str, u, y, direct, card: str) -> int:
+    """(e) ``serve <dir> --port 0`` in its own process
+    (:func:`serve_subprocess`): one JSON request, held against the
+    direct call of dispatch 0 at float32 tolerance (another process).
+    Returns the four launch counts it printed."""
+    import numpy as np
+
+    def use(base):
         t1 = time.perf_counter()
         code, reply = http_json("POST", base + "/v1/predict", {"u": u.tolist(), "y": y.tolist()})
         first_ms = 1e3 * (time.perf_counter() - t1)
@@ -1574,27 +1645,17 @@ def cli_serve_subprocess(model_dir: str, u, y, direct, card: str) -> int:
                   for f in ("pred_mean", "pred_var"))
         if not np.allclose(reply["pred_mean"], direct.pred_mean[0], rtol=1e-5, atol=1e-6):
             fail(f"CLI serve: reply differs from the direct call by {err:.3e}")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-        rest = []
-        while (line := lines.get(timeout=30)) is not None:
-            rest.append(line)
-        if rc != 0 or not any("shutting down" in ln for ln in rest):
-            fail(f"CLI serve: exit {rc} after SIGTERM; stdout {rest}; stderr {stderr_tail()}")
-        counts = next(ln for ln in rest if ln.startswith("launches")).split()[1:]
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-        err_log.close()
-    launches, residual = int(counts[0]), int(counts[1])
-    print(f"CLI serve: {banner.strip()}; ready in {ready_s:.2f} s, first request "
+        return first_ms, err
+
+    banner, ready_s, (first_ms, err), counts = serve_subprocess(
+        ["serve", model_dir], model_dir, "CLI serve", use)
+    print(f"CLI serve: {banner}; ready in {ready_s:.2f} s, first request "
           f"{first_ms:.2f} ms (max abs diff to the direct call {err:.3e}); SIGTERM: exit 0, "
-          f"'shutting down'; gp_predict launches {launches}, gp_predict_residuals {residual}; "
-          f"{card}", flush=True)
-    if residual != 0:
-        fail(f"CLI serve: gp_predict_residuals launched {residual} times, want 0")
-    return launches
+          f"'shutting down'; {COUNTERS} launches {counts}; {card}", flush=True)
+    if counts != (STEPS_PER_CHUNK, 0, 0, 0):
+        fail(f"CLI serve: {COUNTERS} launches {counts} != ({STEPS_PER_CHUNK}, 0, 0, 0) (one "
+             "dispatch)")
+    return counts
 
 
 def http_json(method: str, url: str, body=None, timeout: float = 300):
@@ -1630,7 +1691,6 @@ def http_serve(model_dir: str, u_all, y_all, card: str):
     import torch
 
     from cbfssm_tpu_torch import model_store
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.serving import BucketedPredictor, MicroBatcher, fold_seed
     from cbfssm_tpu_torch.serving_http import PredictionServer, post_params_npz, post_predict_npz
     from cbfssm_tpu_torch.training import checkpoint
@@ -1700,8 +1760,7 @@ def http_serve(model_dir: str, u_all, y_all, card: str):
                 fail("HTTP serve: a concurrent request got no reply")
             return res, wall, srv.stats()["batches"] - before
 
-        fp.fused_predict.launches = 0
-        fp.fused_predict_residuals.launches = 0
+        reset_launches()
         # a window of its own for every request: a reply is matched to its
         # dispatch by its window
         for tag, binary, first in (("json", False, 0), ("npz", True, 3)):
@@ -1717,12 +1776,9 @@ def http_serve(model_dir: str, u_all, y_all, card: str):
         swap_ms = 1e3 * (time.perf_counter() - t0)
         replies += [one(70, False), one(71, True)]
         stats = srv.stats()
-    launches, residual = fp.fused_predict.launches, fp.fused_predict_residuals.launches
-    if residual != 0:
-        fail(f"HTTP serve: gp_predict_residuals launched {residual} times, want 0")
-    if launches != STEPS_PER_CHUNK * len(dispatched):
-        fail(f"HTTP serve: gp_predict launches {launches} != {STEPS_PER_CHUNK} x "
-             f"{len(dispatched)} dispatches")
+    counts = read_launches("HTTP serve", STEPS_PER_CHUNK * len(dispatched),
+                           f"{STEPS_PER_CHUNK} x {len(dispatched)} dispatches")
+    launches = counts[0]
     if [d[2] for d in dispatched] != [fold_seed(0, k) for k in range(len(dispatched))]:
         fail("HTTP serve: dispatch k did not run with generator seed fold_seed(0, k)")
     before, after = dispatched[:-2], dispatched[-2:]
@@ -1754,7 +1810,7 @@ def http_serve(model_dir: str, u_all, y_all, card: str):
               f"request {med:.2f} ms); {card}", flush=True)
     print(f"hot-swap: POST /v1/params (model.ckpt, {len(last.tensors())} leaves) "
           f"{swap_ms:.2f} ms round trip; {card}", flush=True)
-    return launches, model, params
+    return counts, model, params
 
 
 def phase_cli_http(card: str):
@@ -1776,7 +1832,6 @@ def phase_cli_http(card: str):
 
     from cbfssm_tpu_torch import __main__ as cli
     from cbfssm_tpu_torch import run_robomove
-    from cbfssm_tpu_torch.ops import fused_predict as fp
     from cbfssm_tpu_torch.outputs import outputs as outputs_mod
     from cbfssm_tpu_torch.outputs import outputs_robomove
     from cbfssm_tpu_torch.serving import BucketedPredictor, fold_seed
@@ -1795,32 +1850,27 @@ def phase_cli_http(card: str):
     try:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             root, evaldir = os.path.join(tmp, "robomove"), os.path.join(tmp, "eval")
-            fp.fused_predict.launches = 0
-            fp.fused_predict_residuals.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             if cli.main(["reproduce", "robomove", "--epochs", "1", "--root", root, *dev]) != 0:
                 fail("CLI reproduce robomove did not return 0")
             sync()
             run_s = time.perf_counter() - t0
-            paths["cli_reproduce"] = (fp.fused_predict.launches,
-                                      fp.fused_predict_residuals.launches)
-            want = (2 * (test_batches * STEPS_PER_CHUNK + per_outputs),
-                    2 * steps * STEPS_PER_CHUNK)
-            if paths["cli_reproduce"] != want:
-                fail(f"CLI reproduce: (gp_predict, gp_predict_residuals) launches "
-                     f"{paths['cli_reproduce']} != {want}: 2 phases x ({test_batches} test "
-                     f"batches x {STEPS_PER_CHUNK} + OutputsRoboMove {per_outputs}), 2 x "
-                     f"{steps} steps x {STEPS_PER_CHUNK}")
+            paths["cli_reproduce"] = read_launches(
+                "CLI reproduce", (2 * (test_batches * STEPS_PER_CHUNK + per_outputs),
+                                  2 * steps * STEPS_PER_CHUNK, 0, 0),
+                f"2 phases x ({test_batches} test batches x {STEPS_PER_CHUNK} + OutputsRoboMove "
+                f"{per_outputs}), 2 x {steps} steps x {STEPS_PER_CHUNK}")
             for name in ("best.ckpt", "model.ckpt", "model_meta.json", "mse.txt",
                          "calibration.txt", "predict_test.mat"):
                 if not os.path.isfile(os.path.join(root, name)):
                     fail(f"CLI reproduce: {name} was not written")
             print(f"CLI reproduce robomove: 2 curriculum phases of 1 epoch ({steps} Adam steps, "
                   f"{test_batches} test batches) and their OutputsRoboMove in {run_s:.2f} s; "
-                  f"(gp_predict, gp_predict_residuals) launches {paths['cli_reproduce']} = "
+                  f"{COUNTERS} launches {paths['cli_reproduce']} = "
                   f"2 x ({test_batches} x {STEPS_PER_CHUNK} + {per_outputs}), 2 x {steps} x "
-                  f"{STEPS_PER_CHUNK}" + ("" if plots else
-                                          "; PDFs skipped: matplotlib is not installed here"),
+                  f"{STEPS_PER_CHUNK}, 0, 0" + ("" if plots else
+                                                "; PDFs skipped: matplotlib is not installed here"),
                   flush=True)
 
             info = io.StringIO()
@@ -1832,16 +1882,13 @@ def phase_cli_http(card: str):
                 fail(f"CLI info: exit {rc}, output {text[:500]!r}")
             print(f"CLI info: {text.splitlines()[0]}; {text.splitlines()[1]}", flush=True)
 
-            fp.fused_predict.launches = 0
-            fp.fused_predict_residuals.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             if cli.main(["eval", root, "--out", evaldir, *dev]) != 0:
                 fail("CLI eval did not return 0")
             sync()
             eval_s = time.perf_counter() - t0
-            paths["cli_eval"] = (fp.fused_predict.launches, fp.fused_predict_residuals.launches)
-            if paths["cli_eval"] != (per_outputs, 0):
-                fail(f"CLI eval: launches {paths['cli_eval']} != ({per_outputs}, 0)")
+            paths["cli_eval"] = read_launches("CLI eval", per_outputs, "OutputsRoboMove")
             with open(os.path.join(root, "mse.txt")) as a, \
                     open(os.path.join(evaldir, "mse.txt")) as b:
                 mse_a, mse_b = a.read(), b.read()
@@ -1853,18 +1900,757 @@ def phase_cli_http(card: str):
                   flush=True)
 
             u_all, y_all = ds.test_in_batch, ds.test_out_batch
-            launches, model, params = http_serve(root, u_all, y_all, card)
-            paths["http_serve"] = (launches, 0)
+            paths["http_serve"], model, params = http_serve(root, u_all, y_all, card)
             direct = BucketedPredictor(model, params, SEQ_LEN, buckets=BUCKETS)(
                 u_all[:1], y_all[:1], fold_seed(0, 0))
-            paths["cli_serve"] = (cli_serve_subprocess(root, u_all[0], y_all[0], direct, card),
-                                  0)
-            if paths["cli_serve"][0] != STEPS_PER_CHUNK:
-                fail(f"CLI serve: gp_predict launches {paths['cli_serve'][0]} != "
-                     f"{STEPS_PER_CHUNK} (one dispatch)")
+            paths["cli_serve"] = cli_serve_subprocess(root, u_all[0], y_all[0], direct, card)
     finally:
         outputs_mod.pyplot, outputs_robomove.pyplot = saved
     return paths
+
+
+def rnn_model(cls, dtype: str, impl: str):
+    """Phase 6's models: the RoboMove phase-0 width with the GRU
+    recognition net and var_y of length dim_y = 2."""
+    import numpy as np
+
+    return cls(config(dtype, impl, var_y=np.asarray([1.0**2] * 2), recog_model="rnn"),
+               device=DEVICE)
+
+
+def host(a):
+    """A tensor or array as a host numpy array."""
+    import numpy as np
+
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def timed_call(times: list, fn, *args):
+    """``fn(*args)``; its host ms, ending in a device sync, appended to
+    ``times``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    times.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def fmt_times(times: list) -> str:
+    import statistics
+
+    return (f"median {statistics.median(times):.3f} of {len(times)} (min {min(times):.3f}, "
+            f"max {max(times):.3f})")
+
+
+def check_moments(where: str, mean, var, shape):
+    """Shape, finiteness and positive variance of filtered moments."""
+    import numpy as np
+
+    mean, var = host(mean), host(var)
+    if mean.shape != shape or var.shape != shape:
+        fail(f"{where}: moments of shape {mean.shape} / {var.shape}, want {shape}")
+    if not (np.isfinite(mean).all() and np.isfinite(var).all() and (var > 0).all()):
+        fail(f"{where}: non-finite moments or non-positive variance")
+
+
+def same_pair(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(host(x), host(y)) for x, y in zip(a, b))
+
+
+def phase_filter_kernels():
+    """``gp_predict`` against its plain version at the online-filter
+    shapes (``kernel_timing.FILTER_SHAPES``: a 1,024-session fleet at
+    N = 51,200, 32 sessions, one stream, a Voliro pool of 8) in float32
+    (rtol 2e-5, atol 1e-5) and float64 (rtol 1e-10, atol 1e-12), each
+    timed by graph replay beside its bound and 50 eager calls of the
+    plain version. Returns {path: figures}."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.utils.kernel_timing import FILTER_SHAPES, graph_replay_ms, kernel_inputs
+
+    tol = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
+    out = {}
+    rng = np.random.default_rng(3)
+    for path, (n, m, di, d) in FILTER_SHAPES.items():
+        for dtype, (rtol, atol) in tol.items():
+            args = kernel_inputs(rng, n, m, di, d, dtype, DEVICE)
+            got = fp._fused_predict_value(*args)
+            sync()
+            want = fp.fused_predict_plain(*args)
+            err = 0.0
+            for g, w in zip(got, want):
+                e = (g - w).abs()
+                if bool((e > atol + rtol * w.abs()).any()):
+                    fail(f"gp_predict {path} {dtype}: max abs err {float(e.max()):.3e} outside "
+                         f"rtol {rtol} atol {atol}")
+                err = max(err, float(e.max()))
+            dev_ms = graph_replay_ms(lambda: fp._fused_predict_value(*args))
+            plain_ms = cuda_ms(lambda: fp.fused_predict_plain(*args), 50)
+            dt = str(dtype)[6:]
+            bound_ms, bound_by = bound(n, m, di, d, dt, False)
+            fig = out.setdefault(path, {"shape": f"N={n} M={m} DI={di} D={d}"})
+            if dtype == torch.float32:
+                fig.update(ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=err)
+            else:
+                fig.update(ms_f64=dev_ms, plain_ms_f64=plain_ms, bound_ms_f64=bound_ms)
+            print(f"gp_predict {dt} filter {path} N={n} M={m} DI={di} D={d}: ok (max abs err "
+                  f"{err:.3e}); device {dev_ms:.5f} ms (graph replay), bound {bound_ms:.5f} ms "
+                  f"({bound_by}; {100 * bound_ms / dev_ms:.1f} % of bound), plain "
+                  f"{plain_ms:.4f} ms", flush=True)
+    return out
+
+
+def filter_stream(model, params, u_all, y_all, card: str) -> tuple:
+    """(a) One stream: ``StreamingFilter(batch=1, replay_buckets=(16,
+    64))``: start, 64 updates, a 50-step forecast; then its post-start
+    state restored into a filter of another seed, which replays the 64
+    steps in one chunk, equal to the updates bitwise (float32), and at
+    rtol 1e-12 in a float64 repeat. Returns the four launch counts:
+    ``gp_predict`` 1 per update, H per forecast, 64 for the chunk
+    (``filter_init`` runs the GRU: 0)."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.serving import StreamingFilter
+
+    r = int(model.config.recog_len)
+    u, y = u_all[:1], y_all[:1]
+    k_n = FILTER_TICKS
+
+    def run(m, p, times):
+        f = StreamingFilter(m, p, batch=1, replay_buckets=REPLAY_BUCKETS)
+        timed_call(times["start"], f.start, u[:, :r], y[:, :r])
+        snap = f.state
+        seq = [timed_call(times["update"], f.update, u[:, r - 1 + k], y[:, r + k])
+               for k in range(k_n)]
+        fc = timed_call(times["forecast"], f.forecast, u[:, r - 1 + k_n:r - 1 + k_n + FORECAST_H])
+        t0 = time.perf_counter()
+        g = StreamingFilter(m, p, batch=1, seed=1, replay_buckets=REPLAY_BUCKETS)
+        g.load_state(snap)
+        times["state round trip"].append(1e3 * (time.perf_counter() - t0))
+        rep = timed_call(times["replay"], g.replay, u[:, r - 1:r - 1 + k_n], y[:, r:r + k_n])
+        seq_mv = tuple(np.stack([host(s[i]) for s in seq], axis=1) for i in (0, 1))
+        return seq, fc, rep, seq_mv, f, g
+
+    times = {k: [] for k in ("start", "update", "forecast", "state round trip", "replay")}
+    reset_launches()
+    t0 = time.perf_counter()
+    seq, fc, rep, seq_mv, f, g = run(model, params, times)
+    run_s = time.perf_counter() - t0
+    counts = read_launches("filter_stream", k_n + FORECAST_H + REPLAY_BUCKETS[1],
+                           f"{k_n} updates + forecast H {FORECAST_H} + one replay chunk of "
+                           f"{REPLAY_BUCKETS[1]}")
+    for k, (mean, var) in enumerate(seq):
+        check_moments(f"filter_stream update {k}", mean, var, (1, 2))
+    check_moments("filter_stream forecast", *fc, (1, FORECAST_H, 2))
+    if not same_pair(rep, seq_mv):
+        fail(f"filter_stream: the {k_n}-step replay differs from the updates by "
+             f"{np.abs(rep[0] - seq_mv[0]).max():.3e} (float32, want bitwise)")
+    if not np.array_equal(g.state[0], f.state[0]) or not g.state[1] == f.state[1] == k_n:
+        fail("filter_stream: the replayed ensemble or counter differs from the updated one")
+    # the float64 repeat, after the counted run
+    m64 = rnn_model(type(model), "float64", "pallas")
+    _, _, rep64, seq64, f64, g64 = run(m64, params.to(torch.float64),
+                                       {k: [] for k in times})
+    for a, b in (*zip(rep64, seq64), (g64.state[0], f64.state[0])):
+        if not np.allclose(a, b, rtol=1e-12, atol=1e-14):
+            fail(f"filter_stream float64: replay vs updates differ by {np.abs(a - b).max():.3e}")
+    print(f"filter_stream: start, {k_n} updates, forecast H {FORECAST_H}, the start state "
+          f"restored into a seed-1 filter, a {k_n}-step replay, in {run_s:.2f} s; replay equal "
+          f"to the updates bitwise (float32) and at rtol 1e-12 (float64); gp_predict launches "
+          f"{counts[0]} = {k_n} + {FORECAST_H} + {REPLAY_BUCKETS[1]}", flush=True)
+    print(f"latency filter_stream (B=1, float32, host ms): update {fmt_times(times['update'])}; "
+          f"start {times['start'][0]:.3f}; forecast H {FORECAST_H} {times['forecast'][0]:.3f}; "
+          f"{k_n}-step replay {times['replay'][0]:.3f}; state round trip "
+          f"{times['state round trip'][0]:.3f}; {card}", flush=True)
+    return counts
+
+
+def filter_fleet(model, params, u_all, y_all, card: str):
+    """(b) A 32-session fleet (N = 1,600 rows a tick):
+    ``FilterPool(capacity=32, replay_buckets=(16, 64))`` attaches 32
+    test windows and runs 20 lockstep ticks, a hold tick (odd sessions
+    only), a ragged replay (lengths uniform in [1, 64], seed 0), a
+    50-step forecast, and a ``state`` restored into a pool of another
+    seed, after which 3 ticks of both are equal. After the counted run:
+    the 20 ticks equal a ``StreamingFilter(batch=32)`` from the same
+    ensemble, the held rows did not move, the replay equals the
+    tick-by-tick schedule (bitwise), and the kernel path equals
+    ``gp_impl='solve_free'`` in float64 at rtol 1e-8. Returns the four
+    launch counts and the fleet's state."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.serving import FilterPool, StreamingFilter, plan_replay_chunks
+
+    r = int(model.config.recog_len)
+    n = FLEET
+    lengths = np.random.default_rng(0).integers(1, FILTER_TICKS + 1, size=n)
+    t_rep = r + FLEET_TICKS + 1  # the backlog's first step
+
+    def tick_inputs(sids, k, only=None):
+        return {s: (u_all[i, r - 1 + k], y_all[i, r + k]) for i, s in enumerate(sids)
+                if only is None or i % 2 == only}
+
+    times = {k: [] for k in ("attach", "tick", "hold tick", "replay", "forecast", "state")}
+    reset_launches()
+    t0 = time.perf_counter()
+    pool = FilterPool(model, params, capacity=n, replay_buckets=REPLAY_BUCKETS)
+    sids = [timed_call(times["attach"], pool.attach, u_all[i, :r], y_all[i, :r])
+            for i in range(n)]
+    x0 = pool.state
+    ticks = [timed_call(times["tick"], pool.step, tick_inputs(sids, k))
+             for k in range(FLEET_TICKS)]
+    after_lockstep = pool.state
+    held = timed_call(times["hold tick"], pool.step, tick_inputs(sids, FLEET_TICKS, only=1))
+    after_hold = pool.state
+    backlog = {s: (u_all[i, t_rep - 1:t_rep - 1 + lengths[i]],
+                   y_all[i, t_rep:t_rep + lengths[i]]) for i, s in enumerate(sids)}
+    replayed = timed_call(times["replay"], pool.replay, backlog)
+    after_replay = pool.state
+    t_fc = t_rep + FILTER_TICKS
+    fc = timed_call(times["forecast"], pool.forecast,
+                    {s: u_all[i, t_fc:t_fc + FORECAST_H] for i, s in enumerate(sids)})
+    t1 = time.perf_counter()
+    snap = pool.state
+    standby = FilterPool(model, params, capacity=n, seed=7, replay_buckets=REPLAY_BUCKETS)
+    standby.load_state(snap)
+    times["state"].append(1e3 * (time.perf_counter() - t1))
+    tail = [(pool.step(tick_inputs(sids, k)), standby.step(tick_inputs(sids, k)))
+            for k in range(FLEET_TICKS + 1, FLEET_TICKS + 4)]
+    run_s = time.perf_counter() - t0
+    plan = plan_replay_chunks(int(lengths.max()), REPLAY_BUCKETS)
+    k_prog = sum(kp for _, kp in plan)
+    counts = read_launches(
+        "filter_pool", FLEET_TICKS + 1 + k_prog + FORECAST_H + 6,
+        f"{FLEET_TICKS} ticks + 1 hold tick + replay chunks {plan} + forecast H {FORECAST_H} "
+        "+ 3 ticks on the pool and 3 on its standby")
+
+    # the references, after the counted run
+    for k, out in enumerate(ticks):
+        for s in sids:
+            check_moments(f"filter_pool tick {k}", *out[s], (2,))
+    for s in sids:
+        check_moments("filter_pool forecast", *fc[s], (FORECAST_H, 2))
+    sf = StreamingFilter(model, params, batch=n)
+    sf.start(u_all[:n, :r], y_all[:n, :r])
+    init_err = float(np.abs(sf.state[0] - x0[0]).max())
+    if not np.allclose(sf.state[0], x0[0], rtol=1e-4, atol=1e-5):
+        fail(f"filter_pool: 32 attaches vs a batch-32 start differ by {init_err:.3e}")
+    sf.load_state((x0[0], 0, x0[4]))
+    for k, out in enumerate(ticks):
+        mean, var = (host(a) for a in sf.update(u_all[:n, r - 1 + k], y_all[:n, r + k]))
+        if not all(same_pair(out[s], (mean[i], var[i])) for i, s in enumerate(sids)):
+            fail(f"filter_pool: tick {k} differs from the batch-32 StreamingFilter")
+    if not np.array_equal(sf.state[0], after_lockstep[0]):
+        fail("filter_pool: 20 lockstep ticks differ from the batch-32 StreamingFilter")
+    moved = np.abs(after_hold[0] - after_lockstep[0]).reshape(n, -1).max(axis=1)
+    if set(held) != set(sids[1::2]) or moved[0::2].any() or not moved[1::2].all():
+        fail("filter_pool: the hold tick moved a held row or held a stepped one")
+    seq_pool = FilterPool(model, params, capacity=n)
+    seq_pool.load_state(after_hold)
+    seq = {s: [] for s in sids}
+    for t in range(int(lengths.max())):
+        out = seq_pool.step({s: (backlog[s][0][t], backlog[s][1][t])
+                             for i, s in enumerate(sids) if lengths[i] > t})
+        for s, mv in out.items():
+            seq[s].append(mv)
+    for s in sids:
+        want = tuple(np.stack([mv[i] for mv in seq[s]]) for i in (0, 1))
+        if not same_pair(replayed[s], want):
+            fail(f"filter_pool: session {s}'s ragged replay differs from the tick-by-tick "
+                 "schedule")
+    if not np.array_equal(seq_pool.state[0], after_replay[0]) or \
+            seq_pool.state[1] != after_replay[1]:
+        fail("filter_pool: the replayed ensemble differs from the tick-by-tick one")
+    if not all(same_pair(a[s], b[s]) for a, b in tail for s in sids):
+        fail("filter_pool: the seed-7 standby restored from state differs from the pool")
+    # the kernel path against solve_free, float64 (after the counted run)
+    outs = {}
+    for impl in ("pallas", "solve_free"):
+        m64 = rnn_model(type(model), "float64", impl)
+        p64 = FilterPool(m64, params.to(torch.float64), capacity=n)
+        s64 = [p64.attach(u_all[i, :r], y_all[i, :r]) for i in range(n)]
+        outs[impl] = [p64.step(tick_inputs(s64, k)) for k in range(5)]
+        outs[impl].append(p64.forecast({s: u_all[i, r + 5:r + 15] for i, s in enumerate(s64)}))
+    f64_err = 0.0
+    for a, b in zip(outs["pallas"], outs["solve_free"]):
+        for s in a:
+            for x, z in zip(a[s], b[s]):
+                f64_err = max(f64_err, float(np.abs(x - z).max()))
+                if not np.allclose(x, z, rtol=1e-8, atol=1e-10):
+                    fail(f"filter_pool float64: kernel path vs solve_free differ by "
+                         f"{np.abs(x - z).max():.3e}")
+    print(f"filter_pool: {n} attaches, {FLEET_TICKS} lockstep ticks, a hold tick, a ragged "
+          f"replay (lengths {int(lengths.min())}-{int(lengths.max())}, chunks {plan}), forecast "
+          f"H {FORECAST_H}, state into a seed-7 standby and 3 ticks of each, in {run_s:.2f} s; "
+          f"ticks equal to a batch-{n} StreamingFilter from the same ensemble (the batch-{n} "
+          f"start within {init_err:.2e}), held rows unmoved, replay and standby bitwise; "
+          f"float64 kernel path vs solve_free max abs diff {f64_err:.3e} (rtol 1e-8); "
+          f"gp_predict launches {counts[0]}", flush=True)
+    print(f"latency filter_pool ({n} sessions, N = {n * model.samples} rows, float32, host ms): "
+          f"tick {fmt_times(times['tick'])}; hold tick {times['hold tick'][0]:.3f}; attach "
+          f"{fmt_times(times['attach'])}; replay {times['replay'][0]:.3f}; forecast H "
+          f"{FORECAST_H} {times['forecast'][0]:.3f}; state round trip {times['state'][0]:.3f}; "
+          f"{card}", flush=True)
+    return counts, pool.state
+
+
+def recording_pool(*args, **kwargs):
+    """A FilterPool that logs every attach (its window) and every step
+    (its group of inputs) in ``log``, in dispatch order."""
+    from cbfssm_tpu_torch.serving import FilterPool
+
+    class RecordingPool(FilterPool):
+        def attach(self, u_prefix, y_prefix):
+            sid = super().attach(u_prefix, y_prefix)
+            self.log.append(("attach", (u_prefix, y_prefix)))
+            return sid
+
+        def step(self, inputs):
+            self.log.append(("step", dict(inputs)))
+            return super().step(inputs)
+
+    pool = RecordingPool(*args, **kwargs)
+    pool.log = []
+    return pool
+
+
+def filter_http(model, params, u_all, y_all, card: str) -> tuple:
+    """(c) An in-process ``FilterServer`` (capacity 32, a 10 ms window):
+    16 client threads each attach a window and POST 20 steps. Every
+    dispatch is recorded, and each reply must equal a bare pool replayed
+    through the recorded attaches and groups, bitwise. Then ``GET
+    /v1/state`` in JSON and in ``.npz``, each restored into a standby
+    server of another seed, whose next tick must equal the primary's
+    bitwise; last, ``POST /v1/params`` (a seed-1 init), after which the
+    sessions keep their state. Returns the four launch counts:
+    ``gp_predict`` 1 per pool step."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.serving import FilterPool
+    from cbfssm_tpu_torch.serving_http import (FilterServer, get_state_npz, post_params_npz,
+                                               post_state_npz)
+
+    r = int(model.config.recog_len)
+    first = 40  # the clients' test windows: 40..55
+    replies = {k: [] for k in range(HTTP_CLIENTS)}
+    lat, sids = [], [None] * HTTP_CLIENTS
+    reset_launches()
+    t0 = time.perf_counter()
+    primary = recording_pool(model, params, capacity=FLEET)
+    standby_pool = FilterPool(model, params, capacity=FLEET, seed=11)
+    with FilterServer(primary, max_wait_ms=HTTP_WAIT_MS) as srv, \
+            FilterServer(standby_pool, max_wait_ms=HTTP_WAIT_MS) as stb:
+        srv.start()
+        stb.start()
+        base, sbase = f"http://{srv.host}:{srv.port}", f"http://{stb.host}:{stb.port}"
+        barrier = threading.Barrier(HTTP_CLIENTS)
+
+        def client(k):
+            w = first + k
+            code, out = http_json("POST", base + "/v1/sessions",
+                                  {"u_prefix": u_all[w, :r].tolist(),
+                                   "y_prefix": y_all[w, :r].tolist()})
+            if code != 200:
+                replies[k].append(("attach", code, out))
+                return
+            sids[k] = out["sid"]
+            barrier.wait(timeout=300)
+            for j in range(HTTP_TICKS):
+                t1 = time.perf_counter()
+                code, out = http_json("POST", f"{base}/v1/sessions/{sids[k]}/step",
+                                      {"u_prev": u_all[w, r - 1 + j].tolist(),
+                                       "y_new": y_all[w, r + j].tolist()})
+                lat.append(1e3 * (time.perf_counter() - t1))
+                replies[k].append((j, code, out))
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(HTTP_CLIENTS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+        if any(th.is_alive() for th in threads):
+            fail("filter_http: clients did not finish")
+        stats = srv.stats()
+        n_client_ops = len(primary.log)
+
+        def next_tick(url, sid, w):
+            return http_json("POST", f"{url}/v1/sessions/{sid}/step",
+                             {"u_prev": u_all[w, r + 30].tolist(),
+                              "y_new": y_all[w, r + 31].tolist()})
+
+        state_ms = {}
+        t1 = time.perf_counter()
+        code, snap = http_json("GET", base + "/v1/state")
+        state_ms["GET json"] = 1e3 * (time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        code2, ack = http_json("POST", sbase + "/v1/state", snap)
+        state_ms["POST json"] = 1e3 * (time.perf_counter() - t1)
+        if (code, code2, ack) != (200, 200, {"ok": True}):
+            fail(f"filter_http: JSON failover answered {code} / {code2} {ack}")
+        if next_tick(sbase, sids[0], first) != next_tick(base, sids[0], first):
+            fail("filter_http: the standby's tick after the JSON restore differs")
+        t1 = time.perf_counter()
+        blob = get_state_npz(base, timeout=300)
+        state_ms["GET npz"] = 1e3 * (time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        post_state_npz(sbase, blob, timeout=300)
+        state_ms["POST npz"] = 1e3 * (time.perf_counter() - t1)
+        if next_tick(sbase, sids[1], first + 1) != next_tick(base, sids[1], first + 1):
+            fail("filter_http: the standby's tick after the .npz restore differs")
+        before = srv.batcher.state().result(timeout=300)
+        new = model.init(torch.Generator(device=DEVICE).manual_seed(1))
+        t1 = time.perf_counter()
+        post_params_npz(base, new, timeout=300)
+        swap_ms = 1e3 * (time.perf_counter() - t1)
+        after = srv.batcher.state().result(timeout=300)
+        if not (np.array_equal(before[0], after[0]) and before[1:4] == after[1:4]):
+            fail("filter_http: the /v1/params swap changed the sessions' state")
+        code, out = next_tick(base, sids[2], first + 2)
+        if code != 200:
+            fail(f"filter_http: a step after the swap answered {code}: {out}")
+        check_moments("filter_http step after the swap", out["mean"], out["var"], (2,))
+    run_s = time.perf_counter() - t0
+    n_steps = sum(kind == "step" for kind, _ in primary.log)
+    counts = read_launches("filter_http", n_steps + 2,
+                           f"{n_steps} primary pool steps + 2 standby ticks")
+
+    # every client reply against a bare pool fed the recorded operations
+    bare, remap, want = FilterPool(model, params, capacity=FLEET), {}, {}
+    n_seen = {}
+    attaches = 0
+    for kind, payload in primary.log[:n_client_ops]:
+        if kind == "attach":
+            remap[attaches] = bare.attach(*payload)
+            attaches += 1
+            continue
+        out = bare.step({remap[s]: v for s, v in payload.items()})
+        for s in payload:
+            j = n_seen.get(s, 0)
+            n_seen[s] = j + 1
+            want[(s, j)] = out[remap[s]]
+    for k in range(HTTP_CLIENTS):
+        if len(replies[k]) != HTTP_TICKS or sids[k] is None:
+            fail(f"filter_http: client {k} got {replies[k][:1]} ...")
+        for j, code, out in replies[k]:
+            if code != 200:
+                fail(f"filter_http: client {k} tick {j} answered {code}: {out}")
+            got = (np.asarray(out["mean"], np.float32), np.asarray(out["var"], np.float32))
+            if not same_pair(got, want[(sids[k], j)]):
+                fail(f"filter_http: client {k} tick {j} differs from the bare pool's replay of "
+                     "the recorded dispatches")
+    n_disp = n_steps - 3  # the three ticks after the clients
+    print(f"filter_http: {HTTP_CLIENTS} clients x {HTTP_TICKS} steps over HTTP in {n_disp} "
+          f"dispatches (mean group {HTTP_CLIENTS * HTTP_TICKS / n_disp:.2f}, max "
+          f"{stats['max_group_seen']}), every reply equal to a bare pool replaying the recorded "
+          f"dispatches; JSON and .npz failover to a seed-11 standby bitwise; /v1/params swap "
+          f"keeps the sessions; {run_s:.2f} s; gp_predict launches {counts[0]} = {n_steps} + 2",
+          flush=True)
+    print(f"latency filter_http (float32, host ms): step round trip {fmt_times(lat)}; "
+          f"{HTTP_CLIENTS} x {HTTP_TICKS} steps in {wall_ms:.2f} ms wall "
+          f"({1e3 * HTTP_CLIENTS * HTTP_TICKS / wall_ms:.1f} steps/s); /v1/state "
+          + ", ".join(f"{k} {v:.2f}" for k, v in state_ms.items())
+          + f"; /v1/params {swap_ms:.2f}; {card}", flush=True)
+    return counts
+
+
+def filter_fleet_1024(model, params, fleet_state, u_all, y_all, card: str) -> tuple:
+    """(d) A 1,024-session fleet (N = 51,200 rows a tick): a
+    ``FilterServer(capacity=1024)`` filled by ``POST /v1/state`` of (b)'s
+    32 ensembles tiled 32 times, ``GET`` and ``POST`` of ``/v1/state``
+    timed in JSON and ``.npz``, then 5 ticks with every session active,
+    submitted through the server's FilterBatcher (a 50 ms window). After
+    the counted run, a bare ``FilterPool(capacity=1024)`` loaded with the
+    same snapshot replays the recorded step groups, and every reply of
+    every tick must equal its replay bitwise. Returns the four launch
+    counts: ``gp_predict`` 1 per pool step."""
+    import numpy as np
+
+    from cbfssm_tpu_torch.serving import FilterPool
+    from cbfssm_tpu_torch.serving_http import FilterServer, get_state_npz, post_state_npz
+
+    r = int(model.config.recog_len)
+    x32, tick, _, _, key = fleet_state
+    reps = BIG_FLEET // FLEET
+    snapshot = (np.tile(x32, (reps, 1, 1)), tick, {i: i for i in range(BIG_FLEET)},
+                BIG_FLEET, key)
+    reset_launches()
+    t0 = time.perf_counter()
+    pool = recording_pool(model, params, capacity=BIG_FLEET)
+    ms = {}
+    with FilterServer(pool, max_wait_ms=50.0) as srv:
+        srv.start()
+        base = f"http://{srv.host}:{srv.port}"
+        body = FilterServer._encode_state(snapshot)
+        t1 = time.perf_counter()
+        code, ack = http_json("POST", base + "/v1/state", body)
+        ms["POST json"] = 1e3 * (time.perf_counter() - t1)
+        if (code, ack) != (200, {"ok": True}):
+            fail(f"filter_fleet_1024: POST /v1/state answered {code}: {ack}")
+        t1 = time.perf_counter()
+        code, snap = http_json("GET", base + "/v1/state")
+        ms["GET json"] = 1e3 * (time.perf_counter() - t1)
+        if code != 200 or not np.array_equal(np.asarray(snap["x"], np.float32), snapshot[0]):
+            fail("filter_fleet_1024: GET /v1/state does not return the posted ensemble")
+        t1 = time.perf_counter()
+        blob = get_state_npz(base, timeout=300)
+        ms["GET npz"] = 1e3 * (time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        post_state_npz(base, blob, timeout=300)
+        ms["POST npz"] = 1e3 * (time.perf_counter() - t1)
+        sizes = (len(json.dumps(snap, separators=(",", ":"))), len(blob))
+        tick_ms, outs = [], []
+        for k in range(BIG_FLEET_TICKS):
+            t1 = time.perf_counter()
+            futs = [srv.batcher.step(i, u_all[i % len(u_all), r + 40 + k],
+                                     y_all[i % len(u_all), r + 41 + k])
+                    for i in range(BIG_FLEET)]
+            outs.append([f.result(timeout=300) for f in futs])
+            tick_ms.append(1e3 * (time.perf_counter() - t1))
+        stats = srv.stats()
+    run_s = time.perf_counter() - t0
+    n_steps = sum(kind == "step" for kind, _ in pool.log)
+    counts = read_launches("filter_fleet_1024", n_steps,
+                           f"{n_steps} pool steps (dispatches of the {BIG_FLEET_TICKS} ticks)")
+    for k, out in enumerate(outs):
+        mean = np.stack([o[0] for o in out])
+        var = np.stack([o[1] for o in out])
+        check_moments(f"filter_fleet_1024 tick {k}", mean, var, (BIG_FLEET, 2))
+    # every reply against a bare pool fed the same snapshot and the
+    # recorded step groups (the table maps sid i to slot i in both)
+    bare, want, n_seen = FilterPool(model, params, capacity=BIG_FLEET), {}, {}
+    bare.load_state(snapshot)
+    for _, payload in pool.log:
+        out = bare.step(payload)
+        for s in payload:
+            want[(s, n_seen.get(s, 0))] = out[s]
+            n_seen[s] = n_seen.get(s, 0) + 1
+    for k, out in enumerate(outs):
+        for i, got in enumerate(out):
+            if not same_pair(got, want[(i, k)]):
+                fail(f"filter_fleet_1024: session {i} tick {k} differs from the bare pool's "
+                     "replay of the recorded dispatches")
+    print(f"filter_fleet_1024: /v1/state filled {BIG_FLEET} sessions ({FLEET} ensembles x "
+          f"{reps}); {BIG_FLEET_TICKS} ticks of all {BIG_FLEET} sessions in {n_steps} dispatches "
+          f"(max group {stats['max_group_seen']}), every reply equal to a bare pool replaying "
+          f"the recorded dispatches; {run_s:.2f} s; gp_predict launches {counts[0]}",
+          flush=True)
+    print(f"latency filter_fleet_1024 (float32, host ms): tick of {BIG_FLEET} sessions "
+          f"{fmt_times(tick_ms)}; /v1/state ({sizes[0]} bytes JSON, {sizes[1]} bytes .npz) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f"; {card}", flush=True)
+    return counts
+
+
+def save_model_dir(model_dir: str, model, params):
+    """A directory as a trainer leaves it: model_meta.json and best.ckpt."""
+    import os
+
+    from cbfssm_tpu_torch import model_store
+    from cbfssm_tpu_torch.training import checkpoint
+
+    model_store.save_model_meta(model_dir, model)
+    checkpoint.save(os.path.join(model_dir, checkpoint.BEST), {"params": params.tensors()})
+
+
+def cli_serve_filter(model, params, u_all, y_all, card: str) -> tuple:
+    """(e) ``python -m cbfssm_tpu_torch serve --filter DIR --port 0``
+    (:func:`serve_subprocess`) over a directory of the trained
+    CBFSSMHALF: the banner, one attach and one step over HTTP (held
+    against the same in this process at float32 tolerance: another
+    process), then SIGTERM must end it with exit 0. Then ``serve
+    --filter`` on a CBFSSM directory must exit 2. Returns the four
+    launch counts the subprocess printed: ``gp_predict`` 1, its one
+    step."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch import __main__ as cli
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.serving import FilterPool
+
+    r = int(model.config.recog_len)
+    direct_pool = FilterPool(model, params, capacity=32)
+    sid = direct_pool.attach(u_all[0, :r], y_all[0, :r])
+    direct = direct_pool.step({sid: (u_all[0, r - 1], y_all[0, r])})[sid]
+    want_banner = (f"serving CBFSSMHALF filter sessions (capacity 32, recog_len {r}, dim_u 2, "
+                   "dim_y 2, float32, auth off) on http://")
+
+    def use(base):
+        t1 = time.perf_counter()
+        code, out = http_json("POST", base + "/v1/sessions", {
+            "u_prefix": u_all[0, :r].tolist(), "y_prefix": y_all[0, :r].tolist()})
+        code2, step = http_json("POST", f"{base}/v1/sessions/{out.get('sid')}/step",
+                                {"u_prev": u_all[0, r - 1].tolist(), "y_new": y_all[0, r].tolist()})
+        first_ms = 1e3 * (time.perf_counter() - t1)
+        if (code, code2) != (200, 200):
+            fail(f"CLI serve --filter: attach / step answered {code} / {code2}: {step}")
+        err = max(float(np.abs(np.asarray(step[k]) - direct[i]).max())
+                  for i, k in enumerate(("mean", "var")))
+        if not all(np.allclose(step[k], direct[i], rtol=1e-5, atol=1e-6)
+                   for i, k in enumerate(("mean", "var"))):
+            fail(f"CLI serve --filter: the step differs from this process's by {err:.3e}")
+        return first_ms, err
+
+    dev = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        half_dir, cbfssm_dir = os.path.join(tmp, "half"), os.path.join(tmp, "cbfssm")
+        save_model_dir(half_dir, model, params)
+        banner, ready_s, (first_ms, err), counts = serve_subprocess(
+            ["serve", "--filter", half_dir], tmp, "CLI serve --filter", use)
+        if not banner.startswith(want_banner):
+            fail(f"CLI serve --filter: banner {banner!r}, want {want_banner!r}...")
+        cbfssm = CBFSSM(config("float32", "pallas"), device=DEVICE)
+        save_model_dir(cbfssm_dir, cbfssm,
+                       cbfssm.init(torch.Generator(device=DEVICE).manual_seed(0)))
+        msg = io.StringIO()
+        with contextlib.redirect_stderr(msg):
+            rc2 = cli.main(["serve", "--filter", cbfssm_dir, *dev])
+        if rc2 != 2 or "CBFSSM has no streaming interface" not in msg.getvalue():
+            fail(f"CLI serve --filter on a CBFSSM directory: exit {rc2}, {msg.getvalue()!r}")
+    if counts != (1, 0, 0, 0):
+        fail(f"CLI serve --filter: {COUNTERS} launches {counts} != (1, 0, 0, 0): one step")
+    print(f"CLI serve --filter: {banner}; ready in {ready_s:.2f} s, attach + step "
+          f"{first_ms:.2f} ms (max abs diff to this process {err:.3e}); SIGTERM: exit 0; "
+          f"gp_predict launches {counts[0]}; on a CBFSSM directory: exit 2 "
+          f"({msg.getvalue().strip()[:80]}); {card}", flush=True)
+    return counts
+
+
+def filter_voliro(card: str) -> tuple:
+    """(f) Voliro (run_voliro.py's config, B 1 / 8, S 20, M 20, with
+    ``filter_dt`` 0.01) on a synthetic flip log: a ``StreamingFilter``
+    (start, 5 updates, forecast H 10, the start state replayed 5 steps
+    in a padded chunk of 8, equal to the updates bitwise) and a
+    ``FilterPool(capacity=8)`` (8 attaches, 3 ticks, forecast H 10, a
+    ragged replay of 1-8 steps). Voliro's ``filter_init`` launches
+    nothing; each step predicts its force GP once (N = B). Then the
+    kernel path against ``solve_free`` in float64 at rtol 1e-8. Returns
+    the four launch counts."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch import run_voliro
+    from cbfssm_tpu_torch.data import VoliroFlipDS, synthetic
+    from cbfssm_tpu_torch.models import Voliro
+    from cbfssm_tpu_torch.serving import FilterPool, StreamingFilter
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as data_dir:
+        for name, (n, offset) in synthetic.VOLIRO_LOGS.items():
+            synthetic.voliro_log(os.path.join(data_dir, name), n=n, seed=offset)
+        ds = VoliroFlipDS(run_voliro.seq_len, run_voliro.seq_stride, data_dir=data_dir)
+    u_log, y_log = ds.test_in[0], ds.test_out[0]
+
+    def make_model(dtype, impl):
+        return Voliro(dict(run_voliro.model_config, dtype=dtype, gp_impl=impl, filter_dt=0.01),
+                      device=DEVICE)
+
+    model = make_model("float32", "pallas")
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    r, h, k_n = int(model.config.recog_len), 10, 5
+    starts = [140 * i for i in range(VOLIRO_POOL)]  # the test log holds ~1,280 steps
+    lengths = np.arange(1, VOLIRO_POOL + 1)
+
+    def run(m, p):
+        f = StreamingFilter(m, p, batch=1, replay_buckets=(8,))
+        f.start(u_log[None, :r], y_log[None, :r])
+        snap = f.state
+        seq = [f.update(u_log[None, r - 1 + k], y_log[None, r + k]) for k in range(k_n)]
+        fc = f.forecast(u_log[None, r + k_n:r + k_n + h])
+        g = StreamingFilter(m, p, batch=1, seed=3, replay_buckets=(8,))
+        g.load_state(snap)
+        rep = g.replay(u_log[None, r - 1:r - 1 + k_n], y_log[None, r:r + k_n])
+        pool = FilterPool(m, p, capacity=VOLIRO_POOL)
+        sids = [pool.attach(u_log[s:s + r], y_log[s:s + r]) for s in starts]
+        ticks = [pool.step({sid: (u_log[s + r - 1 + k], y_log[s + r + k])
+                            for sid, s in zip(sids, starts)}) for k in range(3)]
+        pfc = pool.forecast({sid: u_log[s + r + 3:s + r + 3 + h] for sid, s in zip(sids, starts)})
+        prep = pool.replay({sid: (u_log[s + r + 2:s + r + 2 + kk], y_log[s + r + 3:s + r + 3 + kk])
+                            for sid, s, kk in zip(sids, starts, lengths)})
+        return seq, fc, rep, f, g, ticks, pfc, prep
+
+    reset_launches()
+    t0 = time.perf_counter()
+    seq, fc, rep, f, g, ticks, pfc, prep = run(model, params)
+    run_s = time.perf_counter() - t0
+    counts = read_launches(
+        "filter_voliro", k_n + h + 8 + 3 + h + int(lengths.max()),
+        f"{k_n} updates + forecast H {h} + a replay chunk of 8 + 3 pool ticks + forecast H {h} "
+        f"+ a pool replay of {int(lengths.max())} steps (filter_init: 0)")
+    for k, (mean, var) in enumerate(seq):
+        check_moments(f"filter_voliro update {k}", mean, var, (1, 7))
+    check_moments("filter_voliro forecast", *fc, (1, h, 7))
+    for out in (*ticks, pfc, prep):
+        for sid, (mean, var) in out.items():
+            check_moments("filter_voliro pool", mean, var, mean.shape)
+    seq_mv = tuple(np.stack([host(s[i]) for s in seq], axis=1) for i in (0, 1))
+    if not same_pair(rep, seq_mv) or not np.array_equal(g.state[0], f.state[0]):
+        fail("filter_voliro: the padded replay differs from the sequential updates")
+    outs = {}
+    for impl in ("pallas", "solve_free"):
+        m64 = make_model("float64", impl)
+        seq64, fc64, _, _, _, ticks64, pfc64, prep64 = run(m64, params.to(torch.float64))
+        outs[impl] = [tuple(host(a) for a in mv) for mv in (*seq64, fc64)] + \
+            [mv for out in (*ticks64, pfc64, prep64) for mv in out.values()]
+    f64_err = 0.0
+    for a, b in zip(outs["pallas"], outs["solve_free"]):
+        for x, z in zip(a, b):
+            f64_err = max(f64_err, float(np.abs(x - z).max()))
+            if not np.allclose(x, z, rtol=1e-8, atol=1e-10):
+                fail(f"filter_voliro float64: kernel path vs solve_free differ by "
+                     f"{np.abs(x - z).max():.3e}")
+    print(f"filter_voliro: StreamingFilter (start, {k_n} updates, forecast H {h}, a {k_n}-step "
+          f"replay padded to 8, equal to the updates bitwise) and FilterPool({VOLIRO_POOL}) "
+          f"(attaches, 3 ticks, forecast H {h}, ragged replay 1-{int(lengths.max())}) in "
+          f"{run_s:.2f} s; float64 kernel path vs solve_free max abs diff {f64_err:.3e} "
+          f"(rtol 1e-8); gp_predict launches {counts[0]}; {card}", flush=True)
+    return counts
+
+
+def phase_filters(card: str, params=None):
+    """Phase 10: online filtering at the RoboMove phase-0 width
+    (CBFSSMHALF, 'rnn', S 50, M 100, dim_x 4, float32, 'pallas', phase
+    6's trained ``params``; a seed-0 init without them) on RoboMove test
+    windows, then Voliro. Each part sets the launch counts to 0 just
+    before its main path and reads them just after. Returns the
+    filter-shape kernel figures and the launches by path."""
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSMHALF
+
+    model = rnn_model(CBFSSMHALF, "float32", "pallas")
+    if params is None:
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    u_all, y_all = served_windows()
+    (ROOT / "build").mkdir(exist_ok=True)
+    paths = {}
+    t0 = time.perf_counter()
+    paths["filter_stream"] = filter_stream(model, params, u_all, y_all, card)
+    paths["filter_pool"], fleet_state = filter_fleet(model, params, u_all, y_all, card)
+    paths["filter_http"] = filter_http(model, params, u_all, y_all, card)
+    paths["filter_fleet_1024"] = filter_fleet_1024(model, params, fleet_state, u_all, y_all,
+                                                   card)
+    kernels = phase_filter_kernels()
+    paths["cli_serve_filter"] = cli_serve_filter(model, params, u_all, y_all, card)
+    paths["filter_voliro"] = filter_voliro(card)
+    print(f"filters: launches by path {paths}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return kernels, paths
 
 
 def main() -> None:
@@ -1885,21 +2671,20 @@ def main() -> None:
     timed("2 build", phase_build)
     max_err, times = timed("3 kernel", phase_kernel)
     res_err, res_times = timed("3b residual kernel", phase_residual_kernel)
-    serve_launches = timed("4 serving", phase_serving, card)
-    train_launches, residual_launches = timed("5 training", phase_training, card)
-    other = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
+    serving = timed("4 serving", phase_serving, card)
+    training = timed("5 training", phase_training, card)
+    other, half_params = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
     model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
     lane_kernels, lane_paths = timed("8 lanes", phase_lanes, card)
     cli_paths = timed("9 CLI and HTTP", phase_cli_http, card)
+    filter_kernels, filter_paths = timed("10 online filtering", phase_filters, card,
+                                         half_params)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
-    # launches per main path: (gp_predict, gp_predict_residuals,
-    # gp_predict_lanes, gp_predict_residuals_lanes)
-    paths = {"serving": (serve_launches, 0), "training": (train_launches, residual_launches),
-             **other, **new_paths, **cli_paths}
-    paths = {path: counts + (0, 0) for path, counts in paths.items()}
-    paths.update(lane_paths)
+    # the four launch counts (COUNTERS) of every main path, as measured
+    paths = {"serving": serving, "training": training, **other, **new_paths,
+             **lane_paths, **cli_paths, **filter_paths}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []
@@ -1933,6 +2718,13 @@ def main() -> None:
             "device_ms_f64": {f"N={nn}": t[(torch.float64, nn)][0] for nn in TIMED_N},
             "model_shapes": model_kernels[name],
         })
+    # the value kernel at the online-filter shapes of phase 10
+    fleet = filter_kernels["fleet 1024"]
+    kernels[0].update({
+        "ms_n51200": fleet["ms"], "bound_ms_n51200": fleet["bound_ms"],
+        "bound_by_n51200": fleet["bound_by"], "shape_n51200": f"float32 {fleet['shape']}",
+        "filter_shapes": filter_kernels,
+    })
     # the lane kernels: figures at the Sarcos recognition shape of phase 8
     lanes, ln, lm, ldi, ld = LANE_SHAPES["sarcos recognition"]
     for k, name in enumerate(("gp_predict_lanes", "gp_predict_residuals_lanes"), start=2):

@@ -5,7 +5,8 @@ kwargs routing of ``reproduce`` and its refusals, ``eval`` from disk
 alone reproducing the ``mse.txt`` of the ``reproduce`` run that wrote
 the directory, the outputs-class mapping, auth-token resolution, and
 ``serve`` in a subprocess answering over HTTP and exiting 0 on
-SIGTERM."""
+SIGTERM, and ``serve --filter`` (a FilterPool behind a FilterServer over
+a CBFSSMHALF directory) likewise, with its refusals."""
 
 import argparse
 import json
@@ -131,11 +132,14 @@ def test_parsers_share_options_with_jax():
         sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
         return {s for a in sub.choices[command]._actions for s in a.option_strings}
 
-    not_ported = {"--filter", "--capacity", "--replay-buckets"}
     for command in ("info", "reproduce", "eval", "serve"):
         mine, theirs = options(build_parser(), command), options(jax_parser(), command)
         extra = set() if command == "info" else {"--device"}
-        assert mine == (theirs - not_ported) | extra, command
+        assert mine == theirs | extra, command
+    args = build_parser().parse_args(["serve", "d", "--filter"])
+    want = jax_parser().parse_args(["serve", "d", "--filter"])
+    assert (args.filter, args.capacity, args.replay_buckets) == \
+        (want.filter, want.capacity, want.replay_buckets) == (True, None, None)
 
 
 def test_eval_reevaluates_from_disk(trained, spring_dir, tmp_path, capsys):
@@ -234,3 +238,75 @@ def test_serve_subprocess_answers_and_exits_on_sigterm(trained):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def half_dir(tmp_path_factory):
+    """A CBFSSMHALF directory as a trainer leaves it (model_meta.json and
+    best.ckpt), from tests/test_other_models.py's tiny config."""
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSMHALF
+    from cbfssm_tpu_torch.training import checkpoint
+    from tests.test_other_models import half_config
+
+    d = str(tmp_path_factory.mktemp("half"))
+    model = CBFSSMHALF(dict(half_config("rnn"), gp_impl="pallas"), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    model_store.save_model_meta(d, model)
+    checkpoint.save(os.path.join(d, checkpoint.BEST), {"params": params.tensors()})
+    return d
+
+
+def test_serve_filter_subprocess_answers_and_exits_on_sigterm(half_dir):
+    """`serve --filter <dir> --device cpu --port 0`: the JAX banner, one
+    attach and one step over HTTP, then SIGTERM ends it with exit 0."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cbfssm_tpu_torch", "serve", "--filter", half_dir, "--device",
+         "cpu", "--port", "0", "--capacity", "4", "--replay-buckets", "2", "8"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+        req.add_header("Content-Type", "application/json")
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
+            return json.loads(r.read())
+
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving CBFSSMHALF filter sessions (capacity 4, recog_len 4, "
+                               "dim_u 2, dim_y 1, float64, auth off) on http://"), \
+            (line, proc.stderr.read())
+        base = line.strip().rsplit(" ", 1)[1]
+        sid = post(base + "/v1/sessions", {"u_prefix": np.zeros((4, 2)).tolist(),
+                                           "y_prefix": np.zeros((4, 1)).tolist()})["sid"]
+        out = post(f"{base}/v1/sessions/{sid}/step", {"u_prev": [0.1, 0.2], "y_new": [0.3]})
+        assert sid == 0 and np.isfinite(out["mean"]).all() and np.all(np.asarray(out["var"]) > 0)
+        out = post(f"{base}/v1/sessions/{sid}/replay", {"u": np.zeros((3, 2)).tolist(),
+                                                       "y": np.zeros((3, 1)).tolist()})
+        assert np.asarray(out["mean"]).shape == (3, 1)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=TIMEOUT)
+        assert proc.returncode == 0, (proc.returncode, err)
+        assert "shutting down" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=TIMEOUT)
+
+
+def test_serve_filter_refuses_what_it_cannot_serve(trained, half_dir, tmp_path, capsys):
+    """A model without the streaming interface, an exported artifact, a
+    directory without model_meta.json and a capacity of 0 exit 2."""
+    assert main(["serve", "--filter", trained, "--device", "cpu"]) == 2
+    assert ("CBFSSM has no streaming interface (filter_ops); FilterPool supports CBFSSMHALF "
+            "and Voliro") in capsys.readouterr().err
+    art = tmp_path / "art"
+    art.mkdir()
+    (art / "meta.json").write_text(json.dumps({"kind": "filter_pool"}))
+    assert main(["serve", "--filter", str(art), "--device", "cpu"]) == 2
+    assert "not served by the port yet" in capsys.readouterr().err
+    assert main(["serve", "--filter", str(tmp_path), "--device", "cpu"]) == 2
+    assert "no model_meta.json" in capsys.readouterr().err
+    assert main(["serve", "--filter", half_dir, "--device", "cpu", "--capacity", "0"]) == 2
+    assert "capacity must be >= 1" in capsys.readouterr().err

@@ -23,8 +23,8 @@ import torch
 
 from cbfssm_tpu_torch.ops import _build
 from cbfssm_tpu_torch.ops import fused_predict as fp
-from cbfssm_tpu_torch.utils.kernel_timing import (KERNEL_SHAPES, MODEL_SHAPES, clamp_kernel_inputs,
-                                                  kernel_inputs)
+from cbfssm_tpu_torch.utils.kernel_timing import (FILTER_SHAPES, KERNEL_SHAPES, MODEL_SHAPES,
+                                                   clamp_kernel_inputs, kernel_inputs)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -355,3 +355,22 @@ def test_cuda_inducing_point_cap_at_model_widths(cuda_device, dtype, di, d):
     mean, var, (_, kmn, w) = fp.fused_predict_residuals_plain(*args)
     for g, ref in zip(got, (mean, var, mean, var, kmn, w)):
         torch.testing.assert_close(g, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 1e-5),
+                                             (torch.float64, 1e-10, 1e-12)])
+@pytest.mark.parametrize("path", sorted(FILTER_SHAPES))
+def test_cuda_value_kernel_at_filter_shapes(cuda_device, dtype, rtol, atol, path):
+    """The value kernel against its plain version at the online-filter
+    shapes: a 1,024-session RoboMove fleet (N = 51,200 rows, 800 row
+    tiles), 32 sessions, one stream, and a Voliro pool."""
+    n, m, di, d = FILTER_SHAPES[path]
+    args = plain_inputs(np.random.default_rng(n + di), n, m, di, d, dtype, cuda_device)
+    before = fp.fused_predict.launches
+    got = fp.fused_predict(*args)
+    torch.cuda.synchronize()
+    assert fp.fused_predict.launches == before + 1
+    want = fp.fused_predict_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
