@@ -37,11 +37,16 @@ class BaseSSM:
 
     ``device`` places parameters, noise draws and computation: the card
     unless the caller asks for ``"cpu"``. The config keys and their
-    checks are the JAX package's. Options that belong to the TPU (fused
-    multi-epoch dispatch, the hand and parallel adjoints) are accepted
-    at their defaults only; with ``adjoint='auto'`` gradients come from
-    autograd, as 'auto' resolves to autodiff in the JAX package.
+    checks are the JAX package's. Fused multi-epoch dispatch, which
+    belongs to the TPU, is accepted at its default only. ``adjoint``
+    picks the gradient schedule among the model's
+    ``SUPPORTED_ADJOINTS``: 'auto' and 'autodiff' are autograd, 'hand'
+    (CBFSSM) and 'parallel' (Voliro) need ``gp_impl='solve_free'``.
     """
+
+    # the gradient schedules a model implements; a model that has a
+    # 'hand' or 'parallel' schedule adds it
+    SUPPORTED_ADJOINTS = frozenset({"auto", "autodiff"})
 
     def __init__(self, config, device="cuda"):
         self.config = as_config(config)
@@ -66,11 +71,21 @@ class BaseSSM:
                 "adjoint must be 'auto', 'autodiff', 'hand', or "
                 f"'parallel', got {self.config.adjoint!r}"
             )
-        if self.config.adjoint != "auto":
+        supported = type(self).SUPPORTED_ADJOINTS
+        if self.config.adjoint not in supported:
+            # a model that never reads the flag would otherwise train
+            # with autograd while the caller believes otherwise
             raise ValueError(
-                f"adjoint={self.config.adjoint!r} is not ported; only the "
-                "default 'auto' is accepted"
+                f"{type(self).__name__} does not implement "
+                f"adjoint={self.config.adjoint!r} (supported: {sorted(supported)})"
             )
+        # 'auto' resolves to autograd, as in the JAX package. The hand and
+        # parallel pullbacks target the solve-free predict math; the
+        # kernel path has its own backward (FusedPredict).
+        self._hand_adjoint = self.config.adjoint == "hand"
+        self._parallel_adjoint = self.config.adjoint == "parallel"
+        if self.config.adjoint in ("hand", "parallel") and self.config.gp_impl != "solve_free":
+            raise ValueError(f"adjoint={self.config.adjoint!r} requires gp_impl='solve_free'")
         if self.config.epochs_per_dispatch != "auto":
             raise ValueError(
                 "epochs_per_dispatch (fused multi-epoch dispatch) is not "

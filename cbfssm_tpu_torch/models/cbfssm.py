@@ -9,7 +9,11 @@ GP prediction (``BaseSSM._gp_predict``), which is the fused CUDA kernel
 under ``gp_impl='pallas'``. Gradients of :meth:`CBFSSM.loss` come from
 autograd through the Python loops; under ``gp_impl='pallas'`` each step's
 predict contributes the analytic backward of
-:class:`cbfssm_tpu_torch.ops.fused_predict.FusedPredict`.
+:class:`cbfssm_tpu_torch.ops.fused_predict.FusedPredict`. With
+``adjoint='hand'`` (``gp_impl='solve_free'``) the forward rollout and the
+blocked recognition are the hand-scheduled Functions of
+:mod:`cbfssm_tpu_torch.models.adjoint`; the sequential recognition
+keeps autograd, as in the JAX package.
 
 Random draws: the JAX package draws its noise inside the rollout from a
 key. Here :meth:`CBFSSM.draw_noise` draws the same arrays, in the same
@@ -84,6 +88,7 @@ class RolloutNoise:
 class CBFSSM(BaseSSM):
     # loss-time fields this model reads (the fields a sweep may vary)
     SWEEPABLE_HYPERS = frozenset({"loss_factors", "k_factor"})
+    SUPPORTED_ADJOINTS = frozenset({"auto", "autodiff", "hand"})
 
     def __init__(self, config, device="cuda"):
         super().__init__(config, device)
@@ -234,21 +239,27 @@ class CBFSSM(BaseSSM):
         noise_st = to_steps(noise, False)
         eps_st = to_steps(eps, False)
 
-        step = adjoint.backward_step(
-            cache_b, var_x[:dh], (2, n_blocks, b, s, dh, self.dim_u + self.dim_y),
-            self._gp_predict,
-        )
         h = torch.zeros((2, n_blocks, b, s, dh), dtype=self.dtype, device=self.device)
-        outs, ents = [], []
-        for i in range(two_l):
-            h, (out, ent_t) = step(
-                h, (u_st[i], y_st[i], z_st[i], noise_st[i], eps_st[i], i == 0)
+        resample = [i == 0 for i in range(two_l)]  # at the block top
+        if self._hand_adjoint:
+            outs, ents = adjoint.backward_scan(resample, cache_b, var_x[:dh], h, u_st, y_st,
+                                               z_st, noise_st, eps_st)
+        else:
+            step = adjoint.backward_step(
+                cache_b, var_x[:dh], (2, n_blocks, b, s, dh, self.dim_u + self.dim_y),
+                self._gp_predict,
             )
-            outs.append(out)
-            ents.append(ent_t)
+            outs, ents = [], []
+            for i in range(two_l):
+                h, (out, ent_t) = step(
+                    h, (u_st[i], y_st[i], z_st[i], noise_st[i], eps_st[i], resample[i])
+                )
+                outs.append(out)
+                ents.append(ent_t)
+            outs, ents = torch.stack(outs), torch.stack(ents)
         # [two_l, 2, K, ...] (descending t') -> [2, t_ext, ...]
-        outs = torch.stack(outs).flip(0).movedim(0, 2).reshape((2, t_ext, b, s, dh))
-        ents = torch.stack(ents).flip(0).movedim(0, 2).reshape((2, t_ext, b))
+        outs = outs.flip(0).movedim(0, 2).reshape((2, t_ext, b, s, dh))
+        ents = ents.flip(0).movedim(0, 2).reshape((2, t_ext, b))
 
         # un-shift each run and select the writing run per absolute t
         _, write0_np = segmentation.backward_masks(t_len, recog_len)
@@ -268,16 +279,20 @@ class CBFSSM(BaseSSM):
         u_tm: [T, B, du] -> (x_final [T, B, S, dx], kl_x [B])."""
         t_len, b = u_tm.shape[0], u_tm.shape[1]
         cond_mask = segmentation.forward_condition_mask(t_len, self.config.recog_len)
-        step = adjoint.forward_step(
-            cache_f, var_x, var_y, hyper(self.config.k_factor),
-            (b, self.samples, self.dim_x, self.dim_u), self._gp_predict,
-        )
+        cond = [bool(condition or cond_mask[t]) for t in range(t_len - 1)]
+        k_factor = hyper(self.config.k_factor)
         x = y_tilde[0]
+        if self._hand_adjoint and t_len > 1:
+            x_rest, kl_steps = adjoint.forward_scan(
+                cond, cache_f, var_x, var_y, k_factor, x, u_tm[:-1], y_tilde[1:], eps)
+            return torch.cat((x[None], x_rest)), torch.sum(kl_steps, dim=0)
+        step = adjoint.forward_step(
+            cache_f, var_x, var_y, k_factor, (b, self.samples, self.dim_x, self.dim_u),
+            self._gp_predict,
+        )
         xs, kls = [x], []
         for t in range(t_len - 1):
-            x, (_, kl_t) = step(
-                x, (u_tm[t], y_tilde[t + 1], eps[t], bool(condition or cond_mask[t]))
-            )
+            x, (_, kl_t) = step(x, (u_tm[t], y_tilde[t + 1], eps[t], cond[t]))
             xs.append(x)
             kls.append(kl_t)
         kl_x = (

@@ -18,7 +18,10 @@
 
 dt comes from the time channel (u[..., 12]) of the first sequence of the
 batch. Each GP call is ``BaseSSM._gp_predict``: the fused CUDA kernel
-under ``gp_impl='pallas'``. The three draws of a rollout are taken
+under ``gp_impl='pallas'``. Both recursions are step functions run in a
+plain loop; with ``adjoint='parallel'`` (``gp_impl='solve_free'``) the
+loop is :func:`cbfssm_tpu_torch.ops.parallel_vjp.scan_outputs_vjp`, whose
+backward has log depth. The three draws of a rollout are taken
 ready-made as ``noise=`` (a :class:`VoliroNoise`, :meth:`Voliro.draw_noise`)
 or drawn from a ``torch.Generator``, in the JAX package's shapes.
 """
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, hyper, moments_over_samples
-from cbfssm_tpu_torch.ops import gp, quaternion, transforms
+from cbfssm_tpu_torch.ops import gp, gp_adjoint, parallel_vjp, quaternion, transforms
 from cbfssm_tpu_torch.ops.distributions import beta_logpdf, kl_diag_gaussians
 
 
@@ -101,6 +104,7 @@ class Voliro(BaseSSM):
     # loss-time fields this model reads: loglik_factor and the Beta
     # priors, not loss_factors / k_factor
     SWEEPABLE_HYPERS = frozenset({"loglik_factor", "n_beta", "l_beta"})
+    SUPPORTED_ADJOINTS = frozenset({"auto", "autodiff", "parallel"})
     # parameter-only aux entries
     REPLICATED_AUX = frozenset(
         {"kl_z_f", "kl_z_b", "n_reg", "l_reg", "global_term", "particle_divisor"}
@@ -247,48 +251,98 @@ class Voliro(BaseSSM):
 
     # --- backward pass --------------------------------------------------
 
+    def _backward_step(self, b: int):
+        """The recognition step ``step(cache, h [B,S,6], (ft_t [B,S,6],
+        y_t [B,7], eps_t [B,S,1])) -> (out, (out, ent_t [B]))``: input
+        [h(6), ft_gp(6), y_hidden(7)], residual on h, no var_x added."""
+        s, dh = self.samples, self.GP_DIM_OUT_B
+
+        def step(cache, h, inp):
+            ft_t, y_t, eps_t = inp
+            y_bs = y_t[:, None, :].expand(b, s, self.DIM_Y)
+            gp_in = torch.cat((h, ft_t, y_bs), dim=-1).reshape(b * s, -1)
+            fmean, fvar = self._gp_predict(cache, gp_in)
+            fmean = fmean.reshape(b, s, dh) + h
+            fvar = fvar.reshape(b, s, dh)
+            out = fmean + eps_t * torch.sqrt(fvar)
+            return out, (out, 0.5 * torch.sum(LOG_2PI_E + torch.log(fvar), dim=(1, 2)))
+
+        return step
+
     def _backward(self, cache_b, ft_gp_tm, yh_tm, eps):
-        """Single-run reverse-time recognition: input [h(6), ft_gp(6),
-        y_hidden(7)], residual on h, no var_x added.
+        """Single-run reverse-time recognition.
 
         ft_gp_tm: [T, B, S, 6], yh_tm: [T, B, 7], eps: [T, B, S, 1] ->
         (y_tilde [T, B, S, 13], entropy [B])
         """
         t_len, b = yh_tm.shape[0], yh_tm.shape[1]
-        s, dh = self.samples, self.GP_DIM_OUT_B
-        h = torch.zeros((b, s, dh), dtype=self.dtype, device=self.device)
-        outs, entropy = [None] * t_len, 0.0
-        for t in reversed(range(t_len)):
-            y_bs = yh_tm[t][:, None, :].expand(b, s, self.DIM_Y)
-            gp_in = torch.cat((h, ft_gp_tm[t], y_bs), dim=-1).reshape(b * s, -1)
-            fmean, fvar = self._gp_predict(cache_b, gp_in)
-            fmean = fmean.reshape(b, s, dh) + h
-            fvar = fvar.reshape(b, s, dh)
-            h = fmean + eps[t] * torch.sqrt(fvar)
-            outs[t] = h
-            entropy = entropy + 0.5 * torch.sum(LOG_2PI_E + torch.log(fvar), dim=(1, 2))
-        y_obs = yh_tm[:, :, None, :].expand(t_len, b, s, self.DIM_Y)
-        return torch.cat((y_obs, torch.stack(outs)), dim=-1), entropy
+        step = self._backward_step(b)
+        h = torch.zeros((b, self.samples, self.GP_DIM_OUT_B), dtype=self.dtype,
+                        device=self.device)
+        if self._parallel_adjoint:
+            # per-particle state (dh = 6): a latency-bound recursion, so
+            # the log-depth reverse pays (ops/parallel_vjp.py)
+            outs, ents = parallel_vjp.scan_outputs_vjp(
+                lambda consts, hh, inp: step(gp_adjoint.link_cache(*consts), hh, inp),
+                gp_adjoint.link_tensors(cache_b), h,
+                (ft_gp_tm.flip(0), yh_tm.flip(0), eps.flip(0)))
+            outs = outs.flip(0)
+        else:
+            outs, ents = [None] * t_len, []
+            for t in reversed(range(t_len)):
+                h, (_, ent_t) = step(cache_b, h, (ft_gp_tm[t], yh_tm[t], eps[t]))
+                outs[t] = h
+                ents.append(ent_t)
+            outs = torch.stack(outs)
+        entropy = 0.0
+        for ent_t in ents:  # descending t, the order of the recursion
+            entropy = entropy + ent_t
+        y_obs = yh_tm[:, :, None, :].expand(t_len, b, self.samples, self.DIM_Y)
+        return torch.cat((y_obs, outs), dim=-1), entropy
 
     # --- forward pass ---------------------------------------------------
+
+    def _forward_step(self, b: int):
+        """The physics step with always-on conditioning on y_tilde:
+        ``step((var_x, var_y, dt), x [B,S,13], (ft_t [B,S,6], y_next
+        [B,S,13], eps_t [B,S,1])) -> (x_next, (x_next, kl_t [B]))``."""
+        s, dx = self.samples, self.DIM_X
+
+        def step(consts, x, inp):
+            var_x, var_y, dt = consts
+            ft_t, y_next, eps_t = inp
+            fmean = self.symplectic_euler(x, ft_t, dt)
+            fvar = var_x.expand(b, s, dx)
+            gain = fvar / (var_y + fvar)
+            mu = fmean + gain * (y_next - fmean)
+            sig = torch.square(1.0 - gain) * fvar + torch.square(gain) * var_y
+            x_next = mu + eps_t * torch.sqrt(sig)
+            return x_next, (x_next, kl_diag_gaussians(mu, sig, fmean, fvar, axis=(1, 2)))
+
+        return step
 
     def _forward(self, var_x, var_y, y_tilde, ft_gp_tm, dt, eps):
         """Physics rollout with always-on conditioning on y_tilde."""
         t_len, b = y_tilde.shape[0], y_tilde.shape[1]
-        s, dx = self.samples, self.DIM_X
-        fvar = var_x.expand(b, s, dx)
-        gain = fvar / (var_y + fvar)
-        x = y_tilde[0]
-        xs = [x]
+        step = self._forward_step(b)
+        consts, x = (var_x, var_y, dt), y_tilde[0]
+        if self._parallel_adjoint and t_len > 1:
+            # per-particle state (dx = 13): the physics and conditioning
+            # link is tiny, so the log-depth reverse (ops/parallel_vjp.py)
+            x_rest, kls = parallel_vjp.scan_outputs_vjp(
+                step, consts, x, (ft_gp_tm[:-1], y_tilde[1:], eps))
+            xs = torch.cat((x[None], x_rest))
+        else:
+            xs, kls = [x], []
+            for t in range(t_len - 1):
+                x, (_, kl_t) = step(consts, x, (ft_gp_tm[t], y_tilde[t + 1], eps[t]))
+                xs.append(x)
+                kls.append(kl_t)
+            xs = torch.stack(xs)
         kl_x = torch.zeros(b, dtype=self.dtype, device=self.device)
-        for t in range(t_len - 1):
-            fmean = self.symplectic_euler(x, ft_gp_tm[t], dt)
-            mu = fmean + gain * (y_tilde[t + 1] - fmean)
-            sig = torch.square(1.0 - gain) * fvar + torch.square(gain) * var_y
-            x = mu + eps[t] * torch.sqrt(sig)
-            xs.append(x)
-            kl_x = kl_x + kl_diag_gaussians(mu, sig, fmean, fvar, axis=(1, 2))
-        return torch.stack(xs), kl_x
+        for kl_t in kls:
+            kl_x = kl_x + kl_t
+        return xs, kl_x
 
     # --- ELBO -----------------------------------------------------------
 

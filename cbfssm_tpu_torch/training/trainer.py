@@ -16,8 +16,10 @@ The model directory describes itself: ``__init__`` writes
 and ``train`` stamps the dataset's recipe into it
 (:func:`~cbfssm_tpu_torch.model_store.record_dataset`), so
 ``python -m cbfssm_tpu_torch eval | serve <dir>`` rebuilds the model
-without the script that trained it. Not ported: device meshes
-(``mesh``, ROADMAP A6.1) and the profiler trace (``profile_dir``, A6.3).
+without the script that trained it. ``profile_dir`` traces the
+training half of epoch 1 under :func:`~cbfssm_tpu_torch.utils.profiling.trace`
+(a run of one epoch writes no trace). Not ported: device meshes
+(``mesh``, ROADMAP A6.1).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from cbfssm_tpu_torch import model_store
 from cbfssm_tpu_torch.training import checkpoint
-from cbfssm_tpu_torch.utils.profiling import MetricsLogger
+from cbfssm_tpu_torch.utils.profiling import MetricsLogger, trace
 
 
 def epoch_indices(rng, n, batch_size, shuffle: bool, dtype):
@@ -98,9 +100,8 @@ class Trainer:
                  profile_dir=None, init_params=None, noise_fn=None):
         if mesh is not None:
             raise ValueError("Trainer(mesh=...) is not ported (ROADMAP A6.1)")
-        if profile_dir is not None:
-            raise ValueError("Trainer(profile_dir=...) is not ported (ROADMAP A6.3)")
         self.model = model
+        self.profile_dir = profile_dir
         self.model_dir = model_dir
         self.device = model.device
         self.seed = seed
@@ -268,7 +269,12 @@ class Trainer:
         lowest_train = float("inf")
         for epoch in range(epochs):
             t0 = time.perf_counter()
-            train_loss = self._epoch_train(ds, batch_size, epoch)
+            if self.profile_dir and epoch == 1:
+                # epoch 1: past the first-call costs, a steady-state trace
+                with trace(self.profile_dir):
+                    train_loss = self._epoch_train(ds, batch_size, epoch)
+            else:
+                train_loss = self._epoch_train(ds, batch_size, epoch)
             test_loss = self._epoch_eval(ds, batch_size, epoch)
             self._log_epoch(epoch, train_loss, test_loss, time.perf_counter() - t0,
                             steps_per_epoch)

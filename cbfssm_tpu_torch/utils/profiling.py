@@ -1,14 +1,88 @@
-"""Structured metrics and step timing (port of
-``cbfssm_tpu/utils/profiling.py``: :class:`MetricsLogger` and
-:class:`StepTimer`). The device trace (``trace``) waits for a
-``torch.profiler`` port (ROADMAP A6.3).
+"""Tracing, NaN checks, structured metrics and step timing (port of
+``cbfssm_tpu/utils/profiling.py``).
+
+* :func:`trace`: a ``torch.profiler`` trace of the block (host ops, and
+  the card's kernels when CUDA is in use), written into a directory as
+  a Chrome / TensorBoard trace file;
+* :func:`debug_nans`: raise ``FloatingPointError`` at the first op,
+  forward or backward, whose output holds a NaN;
+* :class:`MetricsLogger`: append-only JSONL metrics (one object per
+  event);
+* :class:`StepTimer`: wall-clock steps/sec with warmup discard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` and write its trace into
+    ``log_dir`` (``<host>_<pid>.<time>.pt.trace.json``, which Chrome's
+    trace viewer and TensorBoard's profiler plugin read): host ops, and
+    the card's kernels when CUDA is in use in this process. Yields the
+    ``torch.profiler.profile`` object, whose ``events()`` hold the trace
+    once the block has ended."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+
+
+# ops whose outputs are uninitialised memory, which may hold NaN bits
+_UNINITIALISED = {
+    torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
+    torch.ops.aten.empty_like.default, torch.ops.aten.new_empty.default,
+    torch.ops.aten.new_empty_strided.default,
+}
+# process-wide, as JAX's jax_debug_nans flag and autograd's anomaly mode
+# are: the autograd engine runs a CUDA backward on its own threads
+_NAN_CHECK = {"on": False}
+
+
+class _NanCheck(TorchDispatchMode):
+    """Checks every floating output of every op while ``_NAN_CHECK`` is on."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _NAN_CHECK["on"] and func not in _UNINITIALISED:
+            for t in pytree.tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex())
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(f"debug_nans: {func} produced NaN")
+        return out
+
+
+@contextlib.contextmanager
+def debug_nans(enable: bool = True):
+    """Raise ``FloatingPointError`` at the first op inside the block whose
+    output holds a NaN, forward or backward (autograd's anomaly mode is
+    on too, so the error names the forward op of a failing backward).
+    ``enable=False`` turns the check off inside an enclosing block. Both
+    switches return to their previous state on exit. Every op then
+    waits for its result: a debugging tool, not for timed runs."""
+    prev, prev_anomaly = _NAN_CHECK["on"], torch.is_anomaly_enabled()
+    _NAN_CHECK["on"] = enable
+    torch.autograd.set_detect_anomaly(enable)
+    try:
+        with _NanCheck() if enable else contextlib.nullcontext():
+            yield
+    finally:
+        _NAN_CHECK["on"] = prev
+        torch.autograd.set_detect_anomaly(prev_anomaly)
 
 
 class MetricsLogger:

@@ -51,8 +51,19 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    per optimizer step of ``Trainer.train`` (median of steps 2-16) and
    the peak allocated device memory of the epoch, for the main-path
    epoch and one more epoch under ``'solve_free'`` (B = 32, float32),
-   and one further step of each under ``torch.profiler``: device
-   kernels, their summed time, the busy share and the largest kernels;
+   and one further step of each under ``torch.profiler`` (here through
+   the port's ``utils.profiling.trace``): device kernels, their summed
+   time, the busy share and the largest kernels. Then the hand adjoint:
+   one float32 epoch with ``adjoint='hand'``, ``gp_impl='solve_free'``
+   (no kernel of the four launches), whose first step's loss must equal
+   the solve_free autodiff epoch's bitwise; on one batch the loss
+   bitwise and every gradient leaf against autodiff (float64 rtol 1e-7 /
+   atol 1e-12, float32 rtol 2e-3 / atol 1e-5); its step time, peak
+   memory, kernels and busy share beside pallas- and solve_free-autodiff.
+   Last, ``Trainer(profile_dir=)`` on a cut run (windows of 60 steps, 2
+   epochs of 2 steps and 1 test batch): one trace file holding the 2 x
+   119 ``gp_predict_residuals`` kernel events of epoch 1, and the losses
+   of the same run without it;
 6. the other models: CBFSSMHALF and PRSSM with the GRU recognition net
    ('rnn') at the same width (var_y of length dim_y = 2), float32,
    ``gp_impl='pallas'``. Each serves as in phase 4 (every chunk
@@ -88,7 +99,12 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    batch with fixed noise (float64 loss rtol 1e-10, every gradient leaf
    rtol 1e-6, predict outputs rtol 1e-8; float32 against float64 on the
    loss terms at rtol 1e-3), the step time, peak memory and one
-   profiled step;
+   profiled step. Then Voliro's ``adjoint='parallel'``
+   (``gp_impl='solve_free'``): loss bitwise and every gradient leaf
+   against autodiff in float64 (rtol 1e-7 / atol 1e-11), and 10 float32
+   steps of each schedule from the trained params, with step time, peak
+   memory and kernels per step; the parallel steps launch no kernel of
+   the four;
 8. lanes (multi-seed and sweep training on the lane kernels): (a) both
    lane kernels (``gp_predict_lanes``, ``gp_predict_residuals_lanes``)
    against their plain versions over the lane axis at ``LANE_SHAPES``
@@ -117,6 +133,11 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    B = 1 requests of the RoboMove CBFSSM with plain calls going straight
    to the kernel wrapper (as they do) against every call forced through
    ``FusedPredictValue``, alternated, and 2,000 bare calls each way;
+   (g) one lane-batched gradient step of the RoboMove CBFSSM with
+   ``adjoint='hand'`` against autodiff (``gp_impl='solve_free'``, 2
+   lanes of 8 windows, cut from the sweep's 4 x 32): float64 lane
+   losses bitwise and gradients at rtol 1e-7 / atol 1e-12, float32 step
+   times; the hand steps launch no kernel of the four;
 9. the CLI and the HTTP server, at the RoboMove phase-0 width, float32:
    (a) ``cbfssm_tpu_torch.__main__.main(["reproduce", "robomove",
    "--epochs", "1", "--root", DIR])`` in this process: both curriculum
@@ -188,9 +209,11 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    cost per call of the custom op against the direct wrapper.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
-four, phase 7's two (``voliro``: training, test loss and outputs;
-``training_sarcos``), phase 8's two (``lanes``: the Sarcos seeds'
-training, test loss and outputs; ``sweep``) and phase 9's four
+four, phase 5's ``training_hand`` and ``trainer_profile``, phase 7's
+three (``voliro``: training, test loss and outputs;
+``voliro_parallel``; ``training_sarcos``), phase 8's three (``lanes``:
+the Sarcos seeds' training, test loss and outputs; ``sweep``;
+``lanes_hand``) and phase 9's four
 (``cli_reproduce``, ``cli_eval``, ``http_serve``, and ``cli_serve``,
 counted by the subprocess itself) and phase 10's six
 (``filter_stream``, ``filter_pool``, ``filter_http``,
@@ -201,7 +224,9 @@ their subprocesses):
 each sets the launch counts of all four kernels to 0 just before it
 (``reset_launches``) and reads all four just after (``launch_counts``),
 and the kernels line lists them by path (``launches_by_path``;
-``launches`` is their sum).
+``launches`` is their sum). The three paths on ``gp_impl='solve_free'``
+(``SOLVE_FREE_PATHS``) launch none of the four kernels, and are listed
+with their zeros.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card, and the line before that lists the kernels with their
@@ -266,6 +291,10 @@ LANE_SHAPES = {
 SWEEP_K_FACTOR = (1.0, 10.0, 50.0, 200.0)  # phase 8's RoboMove sweep
 SWEEP_STEPS = 4
 STEP_MS = {}  # median train steps, by path, for phase 8's comparison
+PROFILE_SEQ = 60  # phase 5's Trainer(profile_dir=) windows: a sequential recognition
+HAND_LANES, HAND_LANE_BATCH = 2, 8  # phase 8 (g), cut from the sweep's 4 lanes at B 32
+# the paths on gp_impl='solve_free': their rule is no launch of any kernel
+SOLVE_FREE_PATHS = ("training_hand", "voliro_parallel", "lanes_hand")
 FILTER_TICKS = 64  # phase 10 (a): updates of the one stream, and its replayed backlog
 FORECAST_H = 50
 REPLAY_BUCKETS = (16, 64)
@@ -641,13 +670,15 @@ def timed_train(model, model_dir, ds):
     """``Trainer(model, model_dir, seed=0).train(ds, epochs=1)`` with each
     ``train_step`` timed on the host clock, each ending in a device
     sync. Returns the trainer, the step times (ms), the peak allocated
-    device memory of the epoch and the last step's arguments."""
+    device memory of the epoch and the last step's arguments; the
+    trainer's ``step_losses`` holds each step's loss."""
     import torch
 
     from cbfssm_tpu_torch.training import Trainer
 
     trainer = Trainer(model, model_dir, seed=0)
     step, times, last = trainer.train_step, [], []
+    trainer.step_losses = []
 
     def timed_step(*args):
         t0 = time.perf_counter()
@@ -655,6 +686,7 @@ def timed_train(model, model_dir, ds):
         sync()
         times.append(1e3 * (time.perf_counter() - t0))
         last[:] = [args]
+        trainer.step_losses.append(float(out[0]))
         return out
 
     trainer.train_step = timed_step
@@ -668,17 +700,29 @@ def timed_train(model, model_dir, ds):
     return trainer, times, peak, last[0]
 
 
-def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int = 8):
-    """One more ``train_step`` on ``args`` under ``torch.profiler``: its
-    device kernels, their summed time (one stream, so the busy time),
-    the busy share of the median step ``step_ms`` and the largest
-    kernels by device time."""
+def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int = 8,
+                 via_trace: bool = False):
+    """One more ``train_step`` on ``args`` under ``torch.profiler`` (with
+    ``via_trace`` under the port's ``utils.profiling.trace``, whose file
+    goes to a temporary directory): its device kernels, their summed
+    time (one stream, so the busy time), the busy share of the median
+    step ``step_ms`` and the largest kernels by device time. Returns
+    (kernels, busy ms)."""
     import collections
+    import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from cbfssm_tpu_torch.utils.profiling import trace
+
+    with contextlib.ExitStack() as stack:
+        if via_trace:
+            log_dir = stack.enter_context(tempfile.TemporaryDirectory(dir=ROOT / "build"))
+            prof = stack.enter_context(trace(log_dir))
+        else:
+            prof = stack.enter_context(
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         trainer.train_step(*args)
         sync()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -691,11 +735,14 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
           f"busy share of the median step {100 * busy_ms / step_ms:.1f} %; {card}", flush=True)
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {ms:9.3f} ms  {count:6d} x  {name[:110]}", flush=True)
+    return len(kernels), busy_ms
 
 
-def report_steps(label: str, run, card: str):
+def report_steps(label: str, run, card: str, stats: dict | None = None,
+                 via_trace: bool = False):
     """The median step time (steps 2-16) and peak memory of a
-    ``timed_train`` run, then one profiled step."""
+    ``timed_train`` run, then one profiled step. ``stats``, where given,
+    receives step_ms, peak_gib, kernels and busy_share."""
     import statistics
 
     tr, times, peak, args = run
@@ -703,8 +750,12 @@ def report_steps(label: str, run, card: str):
     print(f"train step {label}: median of steps 2-{len(times)} {step_ms:.2f} ms "
           f"(step 1 {times[0]:.2f} ms), peak allocated {peak / 2**30:.3f} GiB; {card}",
           flush=True)
+    kernels, busy_ms = None, None
     if DEVICE == "cuda":
-        profile_step(tr, args, label, step_ms, card)
+        kernels, busy_ms = profile_step(tr, args, label, step_ms, card, via_trace=via_trace)
+    if stats is not None:
+        stats.update(step_ms=step_ms, peak_gib=peak / 2**30, kernels=kernels,
+                     busy_share=None if busy_ms is None else busy_ms / step_ms)
     return step_ms
 
 
@@ -843,27 +894,179 @@ def gradient_parity(make_model, params0, ds, where: str, batch: int = BATCH,
              f"{aux32['kl_x']!r} vs {aux64['kl_x']!r}" if f32_vs_f64 else ""), flush=True)
 
 
+def adjoint_parity(make_model, params0, ds, where: str, adjoint: str, batch: int,
+                   seq_len: int, tols: dict):
+    """The loss and every gradient leaf of one fixed batch and draw under
+    ``adjoint`` against autodiff, both ``gp_impl='solve_free'``, on the
+    card: the loss bitwise, each leaf within ``|a - b| <= atol + rtol *
+    |b|`` for each dtype's ``(rtol, atol)`` in ``tols`` (the JAX tests'
+    tolerances)."""
+    import torch
+
+    for dtype, (rtol, atol) in tols.items():
+        auto = make_model(dtype, "solve_free")
+        other = make_model(dtype, "solve_free", adjoint=adjoint)
+        kw = dict(dtype=auto.dtype, device=DEVICE)
+        u = torch.as_tensor(ds.train_in_batch[:batch], **kw)
+        y = torch.as_tensor(ds.train_out_batch[:batch], **kw)
+        noise = auto.draw_noise(torch.Generator(DEVICE).manual_seed(7), seq_len, batch)
+        l_a, g_a, _ = loss_and_grads(auto, params0.to(auto.dtype), u, y, noise)
+        l_o, g_o, _ = loss_and_grads(other, params0.to(auto.dtype), u, y, noise)
+        if float(l_a) != float(l_o):
+            fail(f"{where}: {dtype} loss under adjoint={adjoint!r} {float(l_o)!r} != autodiff's "
+                 f"{float(l_a)!r} (the same step bodies must give the same bits)")
+        worst = 0.0
+        for k, (a, b) in enumerate(zip(g_o, g_a)):
+            err = (a - b).abs()
+            ratio = float((err / (atol + rtol * b.abs())).max())
+            if ratio > 1.0:
+                fail(f"{where}: {dtype} gradient of leaf {k} under adjoint={adjoint!r}: max abs "
+                     f"err {float(err.max()):.3e}, largest entry {float(b.abs().max()):.3e}, "
+                     f"{ratio:.3g} x the tolerance (rtol {rtol:g}, atol {atol:g})")
+            worst = max(worst, ratio)
+        print(f"adjoint parity {where}: {dtype} adjoint={adjoint!r} vs autodiff: loss "
+              f"{float(l_o)!r} equal bitwise; {len(g_o)} gradient leaves within rtol {rtol:g} / "
+              f"atol {atol:g} (largest error {worst:.3g} x the tolerance)", flush=True)
+
+
+def compare_schedules(where: str, stats: dict, card: str):
+    """One line: step time, peak memory, kernels and busy share of each
+    schedule in ``stats`` (measured in this run)."""
+    parts = [f"{name} {st['step_ms']:.2f} ms, {st['peak_gib']:.3f} GiB, {st['kernels']} "
+             f"kernels, busy {100 * st['busy_share']:.1f} %" if st.get("kernels") is not None
+             else f"{name} {st['step_ms']:.2f} ms, {st['peak_gib']:.3f} GiB"
+             for name, st in stats.items()]
+    print(f"schedules {where}: " + "; ".join(parts) + f"; {card}", flush=True)
+
+
+def hand_training(card: str, ds, make_model, plain, stats: dict):
+    """The ``adjoint='hand'`` path: one float32 Trainer epoch (16 Adam
+    steps, 3 test batches) of CBFSSM with ``gp_impl='solve_free'``,
+    beside the solve_free autodiff epoch ``plain``: no kernel of the four
+    launches; the first step's loss equals autodiff's bitwise (same init,
+    shuffle and draws); gradient parity against autodiff (float64 rtol
+    1e-7 / atol 1e-12, float32 rtol 2e-3 / atol 1e-5); step time, peak
+    memory and one step under ``utils.profiling.trace``. Returns the four
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
+        reset_launches()
+        run = timed_train(make_model("float32", "solve_free", adjoint="hand"), model_dir, ds)
+        counts = read_launches("CBFSSM adjoint=hand", (0, 0, 0, 0),
+                               "gp_impl='solve_free' launches none of the four kernels")
+    trainer = run[0]
+    if not (np.isfinite(trainer.train_all).all() and np.isfinite(trainer.test_all).all()):
+        fail(f"CBFSSM adjoint=hand: non-finite losses: train {trainer.train_all}, test "
+             f"{trainer.test_all}")
+    first, want = trainer.step_losses[0], plain[0].step_losses[0]
+    if first != want:
+        fail(f"CBFSSM adjoint=hand: first step's loss {first!r} != autodiff's {want!r}")
+    print(f"training CBFSSM adjoint=hand: 1 epoch of {len(run[1])} Adam steps in "
+          f"{sum(run[1]) / 1e3:.2f} s of steps; train loss {trainer.train_all[0]!r} (autodiff "
+          f"{plain[0].train_all[0]!r}), test loss {trainer.test_all[0]!r}; first step's loss "
+          f"{first!r} equal to autodiff's bitwise; launches {counts}", flush=True)
+    adjoint_parity(make_model, trainer.params.detach(), ds, "CBFSSM", "hand", BATCH, SEQ_LEN,
+                   {"float64": (1e-7, 1e-12), "float32": (2e-3, 1e-5)})
+    report_steps(f"CBFSSM gp_impl=solve_free adjoint=hand B={BATCH} float32", run, card,
+                 stats=stats.setdefault("solve_free-hand", {}), via_trace=True)
+    compare_schedules(f"CBFSSM B={BATCH} float32", stats, card)
+    print(f"phase 5 adjoint=hand: {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
+
+
+def trainer_profile_dir(card: str):
+    """``Trainer(profile_dir=)`` on a cut run: CBFSSM at the RoboMove
+    width, float32, 'pallas', windows of ``PROFILE_SEQ`` steps (a
+    sequential recognition), 2 epochs of 2 Adam steps and 1 test batch.
+    Epoch 1's training is traced: one ``*.pt.trace.json`` that holds
+    CUDA kernel events, ``gp_predict_residuals`` 2 x 119 of them; the
+    losses equal those of the same run without ``profile_dir``. Returns
+    the four launch counts."""
+    import glob
+    import os
+    import tempfile
+
+    from cbfssm_tpu_torch.data import RoboMove
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.training import Trainer
+
+    t0 = time.perf_counter()
+    ds = RoboMove(PROFILE_SEQ, SEQ_STRIDE)
+    ds.train_in_batch, ds.train_out_batch = (a[:2 * BATCH] for a in (ds.train_in_batch,
+                                                                     ds.train_out_batch))
+    ds.test_in_batch, ds.test_out_batch = (a[:BATCH] for a in (ds.test_in_batch,
+                                                               ds.test_out_batch))
+    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
+    if model.backward_schedule(PROFILE_SEQ) != "sequential":
+        fail(f"trainer_profile: {PROFILE_SEQ} steps do not take the sequential recognition")
+    per_step = 2 * PROFILE_SEQ - 1  # T recognition + T - 1 forward predicts
+    losses = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        log_dir = os.path.join(root, "trace")
+        reset_launches()
+        traced = Trainer(model, os.path.join(root, "a"), seed=0, profile_dir=log_dir)
+        traced.train(ds, epochs=2)
+        counts = read_launches("trainer_profile", (2 * per_step, 4 * per_step, 0, 0),
+                               f"2 epochs x (2 steps, 1 test batch) x {per_step}")
+        losses["traced"] = (traced.train_all, traced.test_all)
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"trainer_profile: {len(files)} trace files in profile_dir, want 1")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        plain = Trainer(model, os.path.join(root, "b"), seed=0)
+        plain.train(ds, epochs=2)
+        losses["plain"] = (plain.train_all, plain.test_all)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    gp = [e for e in kernels if "gp_predict" in e.get("name", "")]
+    if len(gp) != 2 * per_step:
+        names = sorted({e.get("name", "")[:80] for e in kernels})[:20]
+        fail(f"trainer_profile: the trace holds {len(gp)} gp_predict kernel events of "
+             f"{len(kernels)} kernels, want 2 x {per_step}; kernel names: {names}")
+    if losses["traced"] != losses["plain"]:
+        fail(f"trainer_profile: losses with profile_dir {losses['traced']} != without "
+             f"{losses['plain']}")
+    print(f"trainer_profile: Trainer(profile_dir=) 2 epochs of 2 steps (seq {PROFILE_SEQ}): one "
+          f"trace file of {size / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} CUDA "
+          f"kernel events ({len(gp)} gp_predict_residuals = 2 x {per_step}); losses equal "
+          f"without it; launches {counts}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
+
+
 def phase_training(card: str):
     """One full-width RoboMove epoch of CBFSSM through Trainer (the main
-    path), then gradient parity and step times of both gp_impl values."""
+    path), then gradient parity and step times of both gp_impl values,
+    the hand adjoint's epoch beside solve_free autodiff, and
+    ``Trainer(profile_dir=)``. Returns the main path's counts and those
+    of the two new paths."""
     import tempfile
 
     from cbfssm_tpu_torch.models import CBFSSM
 
-    def make_model(dtype, impl):
-        return CBFSSM(config(dtype, impl), device=DEVICE)
+    def make_model(dtype, impl, **overrides):
+        return CBFSSM(config(dtype, impl, **overrides), device=DEVICE)
 
     ds = robomove()
     run, counts = train_main_path(make_model("float32", "pallas"), ds, STEPS_PER_CHUNK,
                                   "CBFSSM")
     gradient_parity(make_model, run[0].params.detach(), ds, "CBFSSM")
     # step time and peak memory, float32, B = 32: the main-path epoch
-    # above and one more of gp_impl='solve_free'
-    report_steps(f"CBFSSM gp_impl=pallas B={BATCH} float32", run, card)
+    # above and one more of gp_impl='solve_free', each with kernels
+    # counted under utils.profiling.trace
+    stats = {}
+    report_steps(f"CBFSSM gp_impl=pallas B={BATCH} float32", run, card,
+                 stats=stats.setdefault("pallas-autodiff", {}), via_trace=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
         plain = timed_train(make_model("float32", "solve_free"), model_dir, ds)
-    report_steps(f"CBFSSM gp_impl=solve_free B={BATCH} float32", plain, card)
-    return counts
+    report_steps(f"CBFSSM gp_impl=solve_free B={BATCH} float32", plain, card,
+                 stats=stats.setdefault("solve_free-autodiff", {}), via_trace=True)
+    hand = hand_training(card, ds, make_model, plain, stats)
+    return counts, {"training_hand": hand, "trainer_profile": trainer_profile_dir(card)}
 
 
 def recognition_parity(params):
@@ -1053,8 +1256,9 @@ def phase_voliro(card: str, data_dir: str):
     from cbfssm_tpu_torch.models import Voliro
     from cbfssm_tpu_torch.outputs import Outputs, OutputsVoliro
 
-    def make_model(dtype, impl):
-        return Voliro(dict(run_voliro.model_config, dtype=dtype, gp_impl=impl), device=DEVICE)
+    def make_model(dtype, impl, **overrides):
+        return Voliro(dict(run_voliro.model_config, dtype=dtype, gp_impl=impl, **overrides),
+                      device=DEVICE)
 
     seq_len, batch = run_voliro.seq_len, run_voliro.model_config["batch_size"]
     # without matplotlib (the card's machine may lack it) the two plots
@@ -1117,6 +1321,46 @@ def phase_voliro(card: str, data_dir: str):
             torch.Generator(device=DEVICE).manual_seed(5))
     report_steps(f"Voliro gp_impl=pallas B={batch} float32 (10 steps on one batch)",
                  timed_steps(trainer, args, 10), card)
+    return counts, voliro_parallel(card, make_model, params, ds, batch, seq_len)
+
+
+def voliro_parallel(card: str, make_model, params, ds, batch: int, seq_len: int):
+    """The ``adjoint='parallel'`` path of Voliro (``gp_impl='solve_free'``):
+    gradient parity against autodiff in float64 (loss bitwise, leaves at
+    rtol 1e-7 / atol 1e-11), then 10 float32 Adam steps on one batch of
+    each schedule from the trained params: step time, peak memory,
+    kernels per step. The parallel steps launch none of the four kernels.
+    Returns their launch counts."""
+    import tempfile
+
+    import torch
+
+    from cbfssm_tpu_torch.training import Trainer
+
+    t0 = time.perf_counter()
+    adjoint_parity(make_model, params, ds, "Voliro", "parallel", batch, seq_len,
+                   {"float64": (1e-7, 1e-11)})
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    stats, counts = {}, None
+    for adjoint in ("autodiff", "parallel"):
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
+            trainer = Trainer(make_model("float32", "solve_free", adjoint=adjoint), model_dir,
+                              init_params=params)
+        trainer.init_state()
+        args = (torch.as_tensor(ds.train_in_batch[:batch], **kw),
+                torch.as_tensor(ds.train_out_batch[:batch], **kw), torch.ones(batch, **kw),
+                torch.Generator(device=DEVICE).manual_seed(5))
+        if adjoint == "parallel":
+            reset_launches()
+        run = timed_steps(trainer, args, 10)
+        if adjoint == "parallel":
+            counts = read_launches("Voliro adjoint=parallel", (0, 0, 0, 0),
+                                   "gp_impl='solve_free' launches none of the four kernels")
+        report_steps(f"Voliro gp_impl=solve_free adjoint={adjoint} B={batch} float32 (10 steps "
+                     "on one batch)", run, card, stats=stats.setdefault(f"solve_free-{adjoint}",
+                                                                      {}))
+    compare_schedules(f"Voliro B={batch} float32", stats, card)
+    print(f"phase 7 adjoint=parallel: {time.perf_counter() - t0:.2f} s", flush=True)
     return counts
 
 
@@ -1166,7 +1410,8 @@ def phase_voliro_sarcos(card: str):
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as data_dir:
         synthetic.stage_all(data_dir, seed=0)
-        paths = {"voliro": phase_voliro(card, data_dir),
+        voliro, parallel = phase_voliro(card, data_dir)
+        paths = {"voliro": voliro, "voliro_parallel": parallel,
                  "training_sarcos": phase_sarcos(card, data_dir)}
     return model_kernels, paths
 
@@ -1549,8 +1794,8 @@ def phase_lanes(card: str):
         synthetic.stage_all(data_dir, seed=0)
         lanes = phase_sarcos_seeds(card, data_dir)
 
-    def make_cbfssm(dtype, impl):
-        return CBFSSM(config(dtype, impl), device=DEVICE)
+    def make_cbfssm(dtype, impl, **overrides):
+        return CBFSSM(config(dtype, impl, **overrides), device=DEVICE)
 
     def make_half(dtype, impl):
         return CBFSSMHALF(config(dtype, impl, var_y=np.asarray([1.0**2] * 2),
@@ -1563,7 +1808,76 @@ def phase_lanes(card: str):
                 SEQ_LEN, "RoboMove CBFSSMHALF rnn")
     sweep = phase_sweep(card)
     value_dispatch(card)
-    return lane_kernels, {"lanes": lanes, "sweep": sweep}
+    hand = lanes_hand(card, ds, make_cbfssm)
+    return lane_kernels, {"lanes": lanes, "sweep": sweep, "lanes_hand": hand}
+
+
+def lanes_hand(card: str, ds, make_model):
+    """(g) One lane-batched gradient step (``MultiSeedTrainer.lane_losses``
+    and backward) of the RoboMove CBFSSM with ``adjoint='hand'`` against
+    autodiff, both ``gp_impl='solve_free'``, at ``HAND_LANES`` lanes of
+    ``HAND_LANE_BATCH`` windows each (cut from the sweep's 4 lanes at
+    B 32 to stay in the time budget): in float64 each lane's loss
+    bitwise and every gradient leaf at rtol 1e-7 / atol 1e-12; in
+    float32 the median of 3 steps of each. The hand steps launch none of
+    the four kernels. Returns their launch counts."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    t0 = time.perf_counter()
+    lanes, batch = HAND_LANES, HAND_LANE_BATCH
+    params = stacked_init(make_model("float64", "solve_free"), lanes)
+    result, counts = {}, None
+    for dtype in ("float64", "float32"):
+        kw = dict(dtype=getattr(torch, dtype), device=DEVICE)
+        u = torch.as_tensor(ds.train_in_batch[:lanes * batch], **kw).reshape(
+            (lanes, batch) + ds.train_in_batch.shape[1:])
+        y = torch.as_tensor(ds.train_out_batch[:lanes * batch], **kw).reshape(
+            (lanes, batch) + ds.train_out_batch.shape[1:])
+        w = torch.ones((lanes, batch), **kw)
+        for adjoint in ("autodiff", "hand"):
+            model = make_model(dtype, "solve_free", adjoint=adjoint)
+            noises = [model.draw_noise(torch.Generator(DEVICE).manual_seed(60 + lane), SEQ_LEN,
+                                       batch) for lane in range(lanes)]
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as model_dir:
+                ms = MultiSeedTrainer(model, model_dir, n_seeds=lanes)
+            times = []
+            if dtype == "float32" and adjoint == "hand":
+                reset_launches()
+            for _ in range(1 if dtype == "float64" else 3):
+                leaves = [t.detach().to(kw["dtype"]).clone().requires_grad_(True)
+                          for t in params.tensors()]
+                t_step = time.perf_counter()
+                losses = ms.lane_losses(params.with_tensors(leaves), u, y, w, noises)
+                grads = torch.autograd.grad(losses.sum(), leaves)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t_step))
+            if dtype == "float32" and adjoint == "hand":
+                counts = read_launches("lanes adjoint=hand", (0, 0, 0, 0),
+                                       "gp_impl='solve_free' launches none of the four kernels")
+            result[(dtype, adjoint)] = (losses.detach(), grads, statistics.median(times))
+    (l_a, g_a, _), (l_h, g_h, _) = result[("float64", "autodiff")], result[("float64", "hand")]
+    if not torch.equal(l_a, l_h):
+        fail(f"lanes adjoint=hand: float64 lane losses {l_h.tolist()} != autodiff's "
+             f"{l_a.tolist()}")
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(g_h, g_a)):
+        ratio = float(((a - b).abs() / (1e-12 + 1e-7 * b.abs())).max())
+        if ratio > 1.0:
+            fail(f"lanes adjoint=hand: float64 gradient of leaf {k}: {ratio:.3g} x the "
+                 "tolerance (rtol 1e-7, atol 1e-12)")
+        worst = max(worst, ratio)
+    ms_a, ms_h = result[("float32", "autodiff")][2], result[("float32", "hand")][2]
+    print(f"lanes adjoint=hand: {lanes} lanes x B {batch} (RoboMove CBFSSM, solve_free): "
+          f"float64 lane losses equal autodiff's bitwise, {len(g_h)} gradient leaves within "
+          f"rtol 1e-7 / atol 1e-12 (largest error {worst:.3g} x the tolerance); float32 lane "
+          f"step (loss + backward, median of 3) hand {ms_h:.2f} ms, autodiff {ms_a:.2f} ms; "
+          f"launches {counts}; {card}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
 
 
 class _NoPlot:
@@ -3138,7 +3452,7 @@ def main() -> None:
     max_err, times = timed("3 kernel", phase_kernel)
     res_err, res_times = timed("3b residual kernel", phase_residual_kernel)
     serving = timed("4 serving", phase_serving, card)
-    training = timed("5 training", phase_training, card)
+    training, training_paths = timed("5 training", phase_training, card)
     other, half_params = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
     model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
     lane_kernels, lane_paths = timed("8 lanes", phase_lanes, card)
@@ -3150,7 +3464,7 @@ def main() -> None:
     if "jax" in sys.modules:
         fail("jax was imported")
     # the four launch counts (COUNTERS) of every main path, as measured
-    paths = {"serving": serving, "training": training, **other, **new_paths,
+    paths = {"serving": serving, "training": training, **training_paths, **other, **new_paths,
              **lane_paths, **cli_paths, **filter_paths, **export_paths}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
@@ -3197,7 +3511,8 @@ def main() -> None:
     # the lane kernels: figures at the Sarcos recognition shape of phase 8
     lanes, ln, lm, ldi, ld = LANE_SHAPES["sarcos recognition"]
     for k, name in enumerate(("gp_predict_lanes", "gp_predict_residuals_lanes"), start=2):
-        by_path = {path: counts[k] for path, counts in paths.items() if counts[k]}
+        by_path = {path: counts[k] for path, counts in paths.items()
+                   if counts[k] or path in SOLVE_FREE_PATHS}
         fig = lane_kernels[name]["sarcos recognition"]
         kernels.append({
             "name": name,

@@ -179,7 +179,8 @@ def test_init_shapes_and_var_dict():
 
 @pytest.mark.parametrize("override,match", [
     ({"gp_impl": "triton"}, "gp_impl"),
-    ({"adjoint": "hand"}, "not ported"),
+    ({"adjoint": "hand", "gp_impl": "pallas"}, "requires gp_impl='solve_free'"),
+    ({"adjoint": "parallel"}, "does not implement"),
     ({"adjoint": "sideways"}, "adjoint must be"),
     ({"epochs_per_dispatch": 4}, "epochs_per_dispatch"),
     ({"backward_mode": "Blocked"}, "backward_mode"),

@@ -47,7 +47,8 @@ import cbfssm_tpu_torch.training.multiseed, cbfssm_tpu_torch.training.sweep
 import cbfssm_tpu_torch.model_store, cbfssm_tpu_torch.data.check
 import cbfssm_tpu_torch.serving_http, cbfssm_tpu_torch.__main__
 import cbfssm_tpu_torch.export, cbfssm_tpu_torch.export_pool, cbfssm_tpu_torch.streams
-import cbfssm_tpu_torch.predict_output
+import cbfssm_tpu_torch.predict_output, cbfssm_tpu_torch.models.adjoint
+import cbfssm_tpu_torch.ops.gp_adjoint, cbfssm_tpu_torch.ops.parallel_vjp
 import chip_smoke
 """ + NOT_LOADED
 

@@ -13,6 +13,7 @@
   the port's own trainer.
 """
 
+import glob
 import json
 import os
 
@@ -248,11 +249,27 @@ def test_metrics_events(tmp_path):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"mesh": object()}, "A6.1"),
-    ({"profile_dir": "trace"}, "A6.3"),
 ])
 def test_trainer_rejects_what_is_not_ported(tmp_path, kwargs, match):
     with pytest.raises(ValueError, match=match):
         Trainer(CBFSSM(smoke_config(), device="cpu"), str(tmp_path / "m"), **kwargs)
+
+
+def test_profile_dir_traces_epoch_1_with_unchanged_losses(tmp_path):
+    """``profile_dir`` writes one torch.profiler trace of epoch 1's
+    training and leaves every loss as it is without it."""
+    ds = SmokeDS()
+    losses = {}
+    for name, kwargs in (("plain", {}), ("traced", {"profile_dir": str(tmp_path / "trace")})):
+        trainer = Trainer(CBFSSM(smoke_config(), device="cpu"), str(tmp_path / name), **kwargs)
+        trainer.train(ds, epochs=2)
+        losses[name] = (trainer.train_all, trainer.test_all)
+    assert losses["traced"] == losses["plain"]
+    files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in str(e.get("name")) for e in events)
 
 
 def test_async_saver_latest_wins_and_snapshots_on_caller_thread(tmp_path):

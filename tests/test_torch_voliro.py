@@ -244,9 +244,20 @@ def test_convert_round_trip_and_missing_leaf(setups):
             device="cpu")
 
 
-def test_adjoint_parallel_is_refused():
-    with pytest.raises(ValueError, match="adjoint"):
-        Voliro(config(adjoint="parallel"), device="cpu")
+def test_adjoint_parallel_loss_and_predict_equal_autodiff(setups):
+    """adjoint='parallel' runs the same step functions: its loss, aux and
+    predict equal the autodiff model's bitwise (its gradients against
+    JAX: tests/test_torch_adjoint.py)."""
+    _, _, pm, tparams = setups()
+    par = Voliro(config(adjoint="parallel"), device="cpu")
+    u, y = voliro_batch(np.random.default_rng(6), b=B, t=T)
+    noise = jax_noise(jax.random.PRNGKey(2), B, T, pm.samples)
+    (l_par, aux_par), (l_auto, aux_auto) = (m.loss(tparams, u, y, noise=noise)
+                                            for m in (par, pm))
+    assert float(l_par) == float(l_auto)
+    assert all(torch.equal(aux_par[k], aux_auto[k]) for k in aux_auto)
+    p_par, p_auto = (m.predict(tparams, u, y, noise=noise) for m in (par, pm))
+    assert all(torch.equal(p_par[k], p_auto[k]) for k in p_auto)
 
 
 # --- streaming ---------------------------------------------------------------
