@@ -83,11 +83,13 @@ def _json_safe(value) -> bool:
 
 
 def _unwrap(model):
-    """An adapter model (``SweptModel``) snapshots its ``template``: the
-    class and config that :func:`load_trained_model` must rebuild."""
-    inner = getattr(model, "template", None)
-    if inner is not None and hasattr(inner, "config") and hasattr(inner, "dim_u"):
-        return inner
+    """An adapter model (``SweptModel``'s ``template``, ``ParticleParallel``'s
+    full-config ``model``) snapshots its inner model: the class and
+    config that :func:`load_trained_model` must rebuild."""
+    for attr in ("template", "model"):
+        inner = getattr(model, attr, None)
+        if inner is not None and hasattr(inner, "config") and hasattr(inner, "dim_u"):
+            return inner
     return model
 
 

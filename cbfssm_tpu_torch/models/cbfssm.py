@@ -84,11 +84,15 @@ class RolloutNoise:
     backward_eps: torch.Tensor  # [t_b, 2, B, S, 1] transition draws
     forward_eps: torch.Tensor  # [T-1, B, S, 1]
 
+    BATCH_AXES = (2, 2, 1)  # each field's batch axis (parallel.noise_rows)
+
 
 class CBFSSM(BaseSSM):
     # loss-time fields this model reads (the fields a sweep may vary)
     SWEEPABLE_HYPERS = frozenset({"loss_factors", "k_factor"})
     SUPPORTED_ADJOINTS = frozenset({"auto", "autodiff", "hand"})
+    # parameter-only aux entries (never summed over a particle mesh)
+    REPLICATED_AUX = frozenset({"kl_z_f", "kl_z_b", "global_term", "particle_divisor"})
 
     def __init__(self, config, device="cuda"):
         super().__init__(config, device)

@@ -99,6 +99,8 @@ class VoliroNoise:
     backward: torch.Tensor  # [T, B, S, 1] recognition transitions
     forward: torch.Tensor  # [T-1, B, S, 1] conditioned forward transitions
 
+    BATCH_AXES = (0, 1, 1)  # each field's batch axis (parallel.noise_rows)
+
 
 class Voliro(BaseSSM):
     # loss-time fields this model reads: loglik_factor and the Beta

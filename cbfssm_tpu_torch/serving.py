@@ -754,7 +754,7 @@ class FilterPool(_Filter):
     def __init__(self, model, params, capacity: int, seed: int = 0,
                  mesh=None, replay_buckets=None):
         if mesh is not None:
-            raise ValueError("FilterPool(mesh=...) is not ported (ROADMAP A6.1)")
+            raise ValueError("FilterPool(mesh=...) is not ported (ROADMAP A6.1b)")
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         super().__init__(model, params, seed, "FilterPool", replay_buckets)

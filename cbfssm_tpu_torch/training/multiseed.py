@@ -44,9 +44,19 @@ params and optimizer (resume with ``retrain=True``); ``best.ckpt`` /
 The directory describes itself as a ``Trainer``'s does
 (``model_meta.json`` at ``__init__``, the dataset recipe at ``train``),
 so ``load_trained_model`` and the CLI reopen the best lane from
-``best.ckpt``. Not ported: device meshes (``mesh``, ROADMAP A6.1) and
-fused multi-epoch dispatch (``epochs_per_dispatch`` other than 'auto',
-an A4.1 follow-up), both rejected with a ``ValueError``.
+``best.ckpt``.
+
+Mesh (``mesh``, ``seed_axis``): the lanes are split over the mesh's
+``seed_axis``, ``n_seeds / n`` to a rank, with no collective inside a
+step (lanes share nothing). Each lane keeps the init, shuffle and draws
+of its global lane index, so every lane equals the unsharded run's. At
+each epoch's end the per-lane losses, and at each save the stacked
+state, are gathered to every rank; rank 0 alone writes files and
+prints, and after ``train`` every rank holds the unsharded state. The
+gathers go through the CPU (``all_gather_object``: gloo has no
+all-gather of CUDA tensors). Not ported: fused multi-epoch dispatch
+(``epochs_per_dispatch`` other than 'auto', an A4.1 follow-up), rejected
+with a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -58,8 +68,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
+from cbfssm_tpu_torch.parallel import distributed
+from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint
 from cbfssm_tpu_torch.training.trainer import epoch_indices, stamp_dataset, stamp_model_meta
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger
@@ -164,6 +177,25 @@ def _lane_rows(a, i):
     return [t.detach()[i].clone() for t in a]
 
 
+def _cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return [_cpu(v) for v in tree]
+
+
+def _cat(parts, device):
+    """Per-rank trees (as :func:`_cpu` gives them) joined on the lane
+    axis, on ``device``."""
+    first = parts[0]
+    if torch.is_tensor(first):
+        return torch.cat(parts).to(device)
+    if isinstance(first, dict):
+        return {k: _cat([p[k] for p in parts], device) for k in first}
+    return [_cat(list(ts), device) for ts in zip(*parts)]
+
+
 class MultiSeedTrainer:
     """Trains ``n_seeds`` independent replicates of ``model`` in one
     lane-batched program. The interface is the JAX trainer's: per-lane
@@ -171,16 +203,17 @@ class MultiSeedTrainer:
     ``best_loss``, :meth:`best_seed`, :meth:`params_for` and
     :meth:`seed_view`.
 
-    Two test seams, as in ``Trainer``: ``init_params`` (stacked params,
-    e.g. a converted ``jax.vmap(model.init)``) replaces the lanes'
-    inits, and ``noise_fn(epoch, split, i, lane, b, t_len) -> noise |
-    None`` replaces a lane's draws.
+    Two test seams, as in ``Trainer``: ``init_params`` (stacked params
+    of all ``n_seeds`` lanes, e.g. a converted ``jax.vmap(model.init)``)
+    replaces the lanes' inits, and ``noise_fn(epoch, split, i, lane, b,
+    t_len) -> noise | None`` replaces a lane's draws (``lane`` is the
+    global lane index).
     """
 
     def __init__(self, model, model_dir, n_seeds: int, seed: int = 0, mesh=None,
-                 metrics_path=None, epochs_per_dispatch=None, init_params=None, noise_fn=None):
-        if mesh is not None:
-            raise ValueError("MultiSeedTrainer(mesh=...) is not ported (ROADMAP A6.1)")
+                 seed_axis: str = "data", metrics_path=None, epochs_per_dispatch=None,
+                 init_params=None, noise_fn=None):
+        check_mesh(mesh, type(self).__name__)
         if epochs_per_dispatch not in (None, "auto"):
             raise ValueError(
                 "MultiSeedTrainer(epochs_per_dispatch=...) (fused multi-epoch dispatch) is not "
@@ -189,6 +222,17 @@ class MultiSeedTrainer:
         self.model_dir = model_dir
         self.device = model.device
         self.n_seeds = int(n_seeds)
+        self.mesh = mesh
+        self.seed_axis = seed_axis
+        n = distributed.axis_size(mesh, seed_axis)
+        if self.n_seeds % n:
+            raise ValueError(f"n_seeds ({self.n_seeds}) must divide by the mesh axis "
+                             f"'{seed_axis}' ({n})")
+        per = self.n_seeds // n
+        start = distributed.axis_index(mesh, seed_axis) * per
+        self._mesh_lanes = slice(start, start + per)  # this rank's lanes
+        self._lanes = slice(0, self.n_seeds)  # the lanes held now
+        self._writer = mesh is None or dist.get_rank() == 0
         self.seed = seed
         self.params = None  # stacked [n_seeds, ...] params
         self.opt = None
@@ -198,7 +242,7 @@ class MultiSeedTrainer:
         self.train_all = []  # [n_seeds] arrays, one an epoch
         self.test_all = []
         self._rng = np.random.default_rng(seed)
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if self._writer else None)
         self.saver = checkpoint.shared_saver()
         self._guard = bool(model.config.skip_nonfinite_updates)
         self.skipped_steps = 0  # cumulative skipped batches, all lanes
@@ -208,21 +252,28 @@ class MultiSeedTrainer:
         self._frozen = int(getattr(model, "frozen_leaves", 0))
         self._device_data = {}
         os.makedirs(model_dir, exist_ok=True)
-        stamp_model_meta(model_dir, model, seed)
+        if self._writer:
+            stamp_model_meta(model_dir, model, seed)
+
+    @property
+    def lanes(self) -> range:
+        """The global indices of the lanes this rank holds."""
+        return range(self._lanes.start, self._lanes.stop)
 
     # --- state -----------------------------------------------------------
 
     def _stacked_init(self):
-        """Stacked [n_seeds, ...] params (override hook)."""
+        """Stacked params of the held lanes (override hook)."""
         if self._init_params is not None:
-            return self._init_params.to(device=self.device, dtype=self.model.dtype)
+            params = self._init_params.to(device=self.device, dtype=self.model.dtype)
+            return params.with_tensors([t[self._lanes] for t in params.tensors()])
         lanes = [self.model.init(torch.Generator(device=self.device).manual_seed(
-            init_seed(self.seed, lane))) for lane in range(self.n_seeds)]
+            init_seed(self.seed, lane))) for lane in self.lanes]
         return lanes[0].with_tensors([torch.stack(ts) for ts in
                                       zip(*(p.tensors() for p in lanes))])
 
     def _learning_rates(self):
-        """[n_seeds] learning rates (override hook)."""
+        """[n_seeds] learning rates, of all lanes (override hook)."""
         return np.full(self.n_seeds, float(self.model.config.learning_rate))
 
     def _trainable(self, params) -> list:
@@ -235,21 +286,24 @@ class MultiSeedTrainer:
         leaves = [t.detach().clone().requires_grad_(k < n_train)
                   for k, t in enumerate(params.tensors())]
         self.params = params.with_tensors(leaves)
-        self.opt = LaneAdam(self._trainable(self.params), self._learning_rates())
+        self.opt = LaneAdam(self._trainable(self.params),
+                            np.asarray(self._learning_rates())[self._lanes])
 
     def _load(self, name: str):
         tree = checkpoint.restore(os.path.join(self.model_dir, name), map_location=self.device)
         leaves = self.params.tensors()
         saved = tree["params"]
-        if len(saved) != len(leaves) or any(s.shape != t.shape for s, t in zip(saved, leaves)):
+        want = [(self.n_seeds,) + tuple(t.shape[1:]) for t in leaves]
+        if len(saved) != len(leaves) or any(tuple(s.shape) != w for s, w in zip(saved, want)):
             raise ValueError(
                 f"{name} holds {len(saved)} stacked params of shapes "
-                f"{[tuple(s.shape) for s in saved]}, this trainer "
-                f"{[tuple(t.shape) for t in leaves]} ({self.n_seeds} lanes)")
+                f"{[tuple(s.shape) for s in saved]}, this trainer {want} ({self.n_seeds} lanes)")
         with torch.no_grad():
             for leaf, s in zip(leaves, saved):
-                leaf.copy_(s)
-        self.opt.load(tree["opt_state"])
+                leaf.copy_(s[self._lanes])
+        opt = tree["opt_state"]
+        self.opt.load({k: [t[self._lanes] for t in v] if isinstance(v, (list, tuple))
+                       else v[self._lanes] for k, v in opt.items()})
 
     def _snapshot(self):
         """Copies of the stacked params and optimizer state."""
@@ -258,6 +312,7 @@ class MultiSeedTrainer:
                  for k, v in self.opt.state().items()})
 
     def init_state(self, retrain: bool = False):
+        self._lanes = self._mesh_lanes
         self._fresh_state()
         if retrain:
             self.saver.flush(self.model_dir)  # pending writes must land first
@@ -280,10 +335,12 @@ class MultiSeedTrainer:
         return epoch_indices(self._rng, n, batch_size, shuffle, self.model.np_dtype)
 
     def _epoch_indices(self, n, batch_size, shuffle: bool):
-        """Per-lane [n_seeds, n_batches, B] gather indices and weights
-        (override hook)."""
+        """Per-lane [lanes, n_batches, B] gather indices and weights of the
+        held lanes (override hook). Every rank draws all lanes' shuffles,
+        in lane order, as the unsharded run does."""
         pairs = [self._single_indices(n, batch_size, shuffle) for _ in range(self.n_seeds)]
-        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+        return (np.stack([p[0] for p in pairs])[self._lanes],
+                np.stack([p[1] for p in pairs])[self._lanes])
 
     def _lane_noise(self, epoch, split, i, lane, b, t_len):
         """Lane ``lane``'s noise for one batch."""
@@ -296,14 +353,13 @@ class MultiSeedTrainer:
         return self.model.draw_noise(gen, t_len, b)
 
     def _noises(self, epoch, split, i, b, t_len) -> list:
-        """Every lane's noise for one batch (override hook)."""
-        return [self._lane_noise(epoch, split, i, lane, b, t_len)
-                for lane in range(self.n_seeds)]
+        """Every held lane's noise for one batch (override hook)."""
+        return [self._lane_noise(epoch, split, i, lane, b, t_len) for lane in self.lanes]
 
     # --- the lane-batched program -----------------------------------------
 
     def lane_losses(self, params, u, y, weights, noises: list, lanes_data: bool = True):
-        """[n_seeds] losses of the stacked ``params``, all lanes in one
+        """[lanes] losses of the stacked ``params``, all lanes in one
         vmapped ``model.loss``: ``u``/``y``/``weights`` carry a leading
         lane axis when ``lanes_data`` (each lane's own shuffle), else one
         batch is shared by every lane; ``noises`` has one noise per lane."""
@@ -366,11 +422,39 @@ class MultiSeedTrainer:
         ]
         return torch.stack(losses).mean(dim=0).cpu().numpy().astype(np.float64)
 
+    # --- the mesh -------------------------------------------------------------
+
+    def _gather(self, tree):
+        """Every rank's ``tree`` of its lanes (tensors, lists and dicts of
+        them, numpy arrays), joined on the lane axis in lane order; the
+        tree itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        parts = [None] * distributed.axis_size(self.mesh, self.seed_axis)
+        if isinstance(tree, np.ndarray):
+            dist.all_gather_object(parts, tree, group=self.mesh.get_group(self.seed_axis))
+            return np.concatenate(parts)
+        dist.all_gather_object(parts, _cpu(tree), group=self.mesh.get_group(self.seed_axis))
+        return _cat(parts, self.device)
+
+    def _unshard(self, params: list, opt: dict):
+        """Hold every lane: the gathered stacked ``params`` and ``opt``
+        state, and the gathered best state."""
+        self.best_params = self._gather(self.best_params)
+        self.best_opt = self._gather(self.best_opt)
+        self._lanes = slice(0, self.n_seeds)
+        n_train = len(params) - self._frozen
+        self.params = self.params.with_tensors(
+            [t.clone().requires_grad_(k < n_train) for k, t in enumerate(params)])
+        self.opt = LaneAdam(self._trainable(self.params), self._learning_rates())
+        self.opt.load(opt)
+
     # --- main loop -------------------------------------------------------------
 
     def train(self, ds, epochs: int, retrain: bool = False):
-        print(f"\nTraining {self.n_seeds} seeds (vmapped)...\n")
-        stamp_dataset(self.model_dir, ds)
+        if self._writer:
+            print(f"\nTraining {self.n_seeds} seeds (vmapped)...\n")
+            stamp_dataset(self.model_dir, ds)
         self.init_state(retrain)
         self._device_data = {}
         batch_size = int(self.model.config.batch_size)
@@ -378,6 +462,7 @@ class MultiSeedTrainer:
             t0 = time.perf_counter()
             train_np, skipped = self._epoch_train(ds, batch_size, epoch)
             test_np = self._epoch_eval(ds, batch_size, epoch)
+            train_np, skipped, test_np = (self._gather(a) for a in (train_np, skipped, test_np))
             if self._guard:
                 self._note_skipped(skipped)
             improved = train_np < self.best_loss
@@ -388,12 +473,17 @@ class MultiSeedTrainer:
             if improved.any():
                 # best saved on every improvement, as Trainer does
                 self._save_best()
-        self.saver.save(os.path.join(self.model_dir, LAST_SEEDS),
-                        {"params": [t.detach() for t in self.params.tensors()],
-                         "opt_state": self.opt.state()})
-        self.saver.save(os.path.join(self.model_dir, checkpoint.LAST),
-                        self._single_tree(self.best_seed(), best=False))
+        params = self._gather([t.detach() for t in self.params.tensors()])
+        opt = self._gather(self.opt.state())
+        if self._writer:
+            self.saver.save(os.path.join(self.model_dir, LAST_SEEDS),
+                            {"params": params, "opt_state": opt})
+            self.saver.save(os.path.join(self.model_dir, checkpoint.LAST),
+                            self._single_tree(self.best_seed(), False, params, opt))
+        if self.mesh is not None:
+            self._unshard(params, opt)
         self.saver.flush(self.model_dir)
+        self._barrier()
         self.metrics.log(event="done", epochs=epochs, best_train=self.best_loss.tolist(),
                          **({"skipped_steps": self.skipped_steps} if self._guard else {}))
 
@@ -401,7 +491,7 @@ class MultiSeedTrainer:
         """Take the improved lanes' params, optimizer state and loss into
         the best state."""
         params, opt = self._snapshot()
-        mask = torch.as_tensor(improved, device=self.device)
+        mask = torch.as_tensor(improved[self._lanes], device=self.device)
 
         def sel(best, new):
             return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, best)
@@ -414,15 +504,16 @@ class MultiSeedTrainer:
 
     def _note_skipped(self, skipped):
         total = int(skipped.sum())
-        if total:
+        if total and self._writer:
             self.skipped_steps += total
             print(f"  [guard] skipped {total} non-finite batch update(s) across lanes",
                   file=sys.stderr)
 
     def _log_epoch(self, epoch, train_np, test_np, dt, skipped=None):
-        print(f"[{epoch:04}]: Train {train_np.mean():.4f} "
-              f"(per-seed {np.array2string(train_np, precision=2)}), "
-              f"Test {test_np.mean():.4f}  ({dt:.2f}s)")
+        if self._writer:
+            print(f"[{epoch:04}]: Train {train_np.mean():.4f} "
+                  f"(per-seed {np.array2string(train_np, precision=2)}), "
+                  f"Test {test_np.mean():.4f}  ({dt:.2f}s)")
         self.train_all.append(train_np)
         self.test_all.append(test_np)
         extra = {"skipped_steps": skipped.tolist()} if skipped is not None else {}
@@ -430,16 +521,27 @@ class MultiSeedTrainer:
                          test_loss=test_np.tolist(), seconds=dt, **extra)
 
     def _save_best(self):
+        params, opt = self._gather(self.best_params), self._gather(self.best_opt)
+        if not self._writer:
+            return
         self.saver.save(os.path.join(self.model_dir, BEST_SEEDS),
-                        {"params": self.best_params, "opt_state": self.best_opt})
+                        {"params": params, "opt_state": opt})
         self.saver.save(os.path.join(self.model_dir, checkpoint.BEST),
-                        self._single_tree(self.best_seed(), best=True))
+                        self._single_tree(self.best_seed(), True, params, opt))
 
-    def _single_tree(self, i: int, best: bool) -> dict:
+    def _barrier(self):
+        """Wait for every rank (after rank 0's file writes)."""
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _single_tree(self, i: int, best: bool, leaves=None, opt=None) -> dict:
         """The tree of best.ckpt / model.ckpt: lane ``i``'s unstacked
-        trained leaves and its Adam state, in ``Trainer``'s format."""
-        leaves = self.best_params if best else self.params.tensors()
-        opt = self.best_opt if best else self.opt.state()
+        trained leaves and its Adam state, in ``Trainer``'s format; of the
+        stacked ``leaves`` and ``opt`` where given (the gathered lanes of
+        a mesh)."""
+        if leaves is None:
+            leaves = self.best_params if best else self.params.tensors()
+            opt = self.best_opt if best else self.opt.state()
         n_train = len(leaves) - self._frozen
         params = _lane_rows(leaves[:n_train], i)
         adam = torch.optim.Adam(params, lr=float(opt["lr"][i]), betas=(BETA1, BETA2), eps=EPS)

@@ -141,10 +141,15 @@ class SweepTrainer(MultiSeedTrainer):
     does not change the loss's own scale; when sweeping ``loss_factors``
     or ``loglik_factor``, rank by an evaluation metric instead
     (:meth:`evaluate_rmse` or :meth:`evaluate_calibration`).
+
+    ``mesh`` splits the grid's points over the mesh's ``seed_axis`` as
+    ``MultiSeedTrainer`` splits its lanes; the grid's size must divide
+    by the axis.
     """
 
     def __init__(self, model_cls, config, sweep: dict, model_dir, seed: int = 0,
-                 vary_init: bool = False, mesh=None, metrics_path=None, device="cuda"):
+                 vary_init: bool = False, mesh=None, seed_axis: str = "data",
+                 metrics_path=None, device="cuda"):
         if not sweep:
             raise ValueError("sweep must name at least one field")
         allowed = frozenset(getattr(model_cls, "SWEEPABLE_HYPERS", SWEEPABLE)) | {"learning_rate"}
@@ -166,7 +171,7 @@ class SweepTrainer(MultiSeedTrainer):
         self._vary_init = vary_init
         model = SweptModel(model_cls, config, tuple(sweep), device=device)
         super().__init__(model, model_dir, n_seeds=lengths.pop(), seed=seed, mesh=mesh,
-                         metrics_path=metrics_path)
+                         seed_axis=seed_axis, metrics_path=metrics_path)
 
     def _stacked_init(self):
         if self._vary_init:
@@ -174,11 +179,11 @@ class SweepTrainer(MultiSeedTrainer):
         else:
             # one shared init: loss differences come from the grid alone
             one = self.model.init(torch.Generator(device=self.device).manual_seed(self.seed))
-            params = one.with_tensors([t.expand((self.n_seeds,) + t.shape).clone()
+            params = one.with_tensors([t.expand((len(self.lanes),) + t.shape).clone()
                                        for t in one.tensors()])
         # the grid on the stacked hyper leaves (a retrain then loads the
         # checkpoint's, which init_state holds against this grid)
-        hyper = {k: torch.as_tensor(v, dtype=self.model.dtype, device=self.device)
+        hyper = {k: torch.as_tensor(v[self._lanes], dtype=self.model.dtype, device=self.device)
                  for k, v in self.sweep.items()}
         return SweptParams(params.model, hyper)
 
@@ -191,7 +196,7 @@ class SweepTrainer(MultiSeedTrainer):
         idx, w = self._single_indices(n, batch_size, shuffle)
 
         def tile(a):
-            return np.repeat(a[None], self.n_seeds, axis=0)
+            return np.repeat(a[None], len(self.lanes), axis=0)
 
         return tile(idx), tile(w)
 
@@ -199,7 +204,7 @@ class SweepTrainer(MultiSeedTrainer):
         """With the shared stream, every lane takes lane 0's draws."""
         if self._vary_init:
             return super()._noises(epoch, split, i, b, t_len)
-        return [self._lane_noise(epoch, split, i, 0, b, t_len)] * self.n_seeds
+        return [self._lane_noise(epoch, split, i, 0, b, t_len)] * len(self.lanes)
 
     def init_state(self, retrain: bool = False):
         super().init_state(retrain)
@@ -207,10 +212,11 @@ class SweepTrainer(MultiSeedTrainer):
             return
         # the checkpoint's values override the grid: a changed grid would
         # train the old values while best_config() reports the new ones
-        grids = {k: (self.params.hyper[k], torch.as_tensor(v, dtype=self.model.dtype))
+        grids = {k: (self.params.hyper[k], torch.as_tensor(v[self._lanes],
+                                                            dtype=self.model.dtype))
                  for k, v in self.sweep.items()}
         if self._lr is not None:
-            grids["learning_rate"] = (self.opt.lr, torch.as_tensor(self._lr,
+            grids["learning_rate"] = (self.opt.lr, torch.as_tensor(self._lr[self._lanes],
                                                                     dtype=torch.float64))
         for k, (stored, want) in grids.items():
             stored = stored.detach().cpu()
@@ -222,11 +228,13 @@ class SweepTrainer(MultiSeedTrainer):
 
     def train(self, ds, epochs: int, retrain: bool = False):
         super().train(ds, epochs, retrain)
-        best = self.best_config()
-        with open(os.path.join(self.model_dir, "sweep_best.json"), "w") as f:
-            json.dump(best, f, indent=2)
-        model_store.fold_config_updates(self.model_dir, best,
-                                        note="sweep best point (by train loss)")
+        if self._writer:
+            best = self.best_config()
+            with open(os.path.join(self.model_dir, "sweep_best.json"), "w") as f:
+                json.dump(best, f, indent=2)
+            model_store.fold_config_updates(self.model_dir, best,
+                                            note="sweep best point (by train loss)")
+        self._barrier()
 
     @staticmethod
     def product_grid(sweep: dict, seeds_per_point: int) -> dict:

@@ -18,8 +18,18 @@ and ``train`` stamps the dataset's recipe into it
 ``python -m cbfssm_tpu_torch eval | serve <dir>`` rebuilds the model
 without the script that trained it. ``profile_dir`` traces the
 training half of epoch 1 under :func:`~cbfssm_tpu_torch.utils.profiling.trace`
-(a run of one epoch writes no trace). Not ported: device meshes
-(``mesh``, ROADMAP A6.1).
+(a run of one epoch writes no trace).
+
+``mesh`` (a ``DeviceMesh`` from :mod:`cbfssm_tpu_torch.parallel`) trains
+across a process group, one process per GPU: the batch size is rounded
+up to the data axis, every rank draws the same shuffle and the whole
+batch's noise and takes its row block of both, backpropagates its share
+of the loss (the global term counted once, ``parallel.mesh_loss``), and
+the gradient is summed over the mesh in one ``all_reduce``, so Adam
+steps on the same numbers everywhere. The losses are the unmeshed ones
+up to summation order. A ``ParticleParallel`` model shards its
+particles (and, with a data axis, its rows) itself. Rank 0 alone
+writes the directory's files and prints; every rank loads them.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ import numpy as np
 import torch
 
 from cbfssm_tpu_torch import model_store
+from cbfssm_tpu_torch.parallel import DataParallel, ParticleParallel, noise_rows
+from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger, trace
 
@@ -93,13 +105,20 @@ class Trainer:
     ``model.init`` (e.g. the converted JAX init), and
     ``noise_fn(epoch, split, i, b, t_len) -> noise | None`` replaces the
     rollout's draws (the model's ``noise=``: a ``RolloutNoise`` for
-    CBFSSM, a ``[T-1, B, S, 1]`` tensor for the others).
+    CBFSSM, a ``[T-1, B, S, 1]`` tensor for the others; on a mesh the
+    whole batch's, of which each rank takes its rows; for a
+    ``ParticleParallel`` model this rank's shard's).
     """
 
     def __init__(self, model, model_dir, mesh=None, seed=0, metrics_path=None,
                  profile_dir=None, init_params=None, noise_fn=None):
-        if mesh is not None:
-            raise ValueError("Trainer(mesh=...) is not ported (ROADMAP A6.1)")
+        check_mesh(mesh, "Trainer")
+        self._particle = isinstance(model, ParticleParallel)
+        if self._particle:
+            if mesh is not None and mesh is not model.mesh:
+                raise ValueError("Trainer(mesh=) must be the ParticleParallel model's mesh")
+            mesh = model.mesh
+        self.dp = DataParallel(mesh)
         self.model = model
         self.profile_dir = profile_dir
         self.model_dir = model_dir
@@ -110,7 +129,7 @@ class Trainer:
         self.params = None
         self.optimizer = None
         self._rng = np.random.default_rng(seed)
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if self.dp.writer else None)
         self.saver = checkpoint.shared_saver()
         self._guard = bool(model.config.skip_nonfinite_updates)
         self.skipped_steps = 0  # cumulative non-finite batches skipped
@@ -119,7 +138,8 @@ class Trainer:
         self._noise_fn = noise_fn
         self._device_data = {}
         os.makedirs(model_dir, exist_ok=True)
-        stamp_model_meta(model_dir, model, seed)
+        if self.dp.writer:
+            stamp_model_meta(model_dir, model, seed)
 
     # --- state -----------------------------------------------------------
 
@@ -160,6 +180,8 @@ class Trainer:
         return self.params
 
     def _save(self, name: str):
+        if not self.dp.writer:
+            return
         self.saver.save(
             os.path.join(self.model_dir, name),
             {"params": [t.detach() for t in self.params.tensors()],
@@ -195,22 +217,40 @@ class Trainer:
                 gen.manual_seed(batch_seed(self.seed, epoch, split, i))
             yield data_u[idx_d[i]], data_y[idx_d[i]], w_d[i], gen, noise
 
+    def _loss(self, u, y, weights, generator, noise):
+        """The batch's ``(loss, aux)``. On a mesh (a plain model) this
+        rank's rows of the batch and of its draws, combined over the mesh
+        by ``DataParallel.loss``: the value is the batch's loss, the
+        gradient this rank's share."""
+        if self.dp.mesh is None or self._particle:
+            return self.model.loss(self.params, u, y, generator, True, weights, noise)
+        if noise is None:
+            noise = self.model.draw_noise(generator, u.shape[1], u.shape[0])
+        rows = self.dp.rows(u.shape[0])
+        _, aux = self.model.loss(self.params, u[rows], y[rows], None, True, weights[rows],
+                                 noise_rows(noise, rows))
+        return self.dp.loss(aux, getattr(type(self.model), "REPLICATED_AUX", frozenset()))
+
     def train_step(self, u, y, weights, generator=None, noise=None):
         """One Adam step on one batch; returns ``(loss, applied)`` with
         the loss a detached 0-d tensor. With ``skip_nonfinite_updates``
         a batch whose loss or any gradient is not finite leaves params
-        and optimizer state (moments and step count) unchanged."""
+        and optimizer state (moments and step count) unchanged; on a
+        mesh every rank decides on the reduced flag, so all skip
+        together."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self.model.loss(self.params, u, y, generator, True, weights, noise)
+        loss, _ = self._loss(u, y, weights, generator, noise)
         loss.backward()
         leaves = self.params.tensors()
         for p in leaves:
             if p.grad is None:  # a leaf the loss does not reach: zero, as in JAX
                 p.grad = torch.zeros_like(p)
+        self.dp.reduce_grads([p.grad for p in leaves])
         if self._guard:
             ok = torch.isfinite(loss)
             for p in leaves:
                 ok = ok & torch.isfinite(p.grad).all()
+            ok = self.dp.all_reduce_scalars(ok.to(loss.dtype), op=torch.distributed.ReduceOp.MIN)
             if not bool(ok):
                 return loss.detach(), False
         self.optimizer.step()
@@ -231,26 +271,24 @@ class Trainer:
     def _epoch_eval(self, ds, batch_size, epoch):
         data_u, data_y = self._stage("test", ds.test_in_batch, ds.test_out_batch)
         losses = [
-            self.model.loss(self.params, u, y, gen, True, w, noise)[0]
+            self._loss(u, y, w, gen, noise)[0]
             for u, y, w, gen, noise in self._batches(data_u, data_y, batch_size, False, epoch, 1)
         ]
         return float(torch.stack(losses).mean())
 
     def _note_skipped(self, skipped: int):
         self._last_skipped = skipped
-        if skipped:
-            self.skipped_steps += skipped
+        self.skipped_steps += skipped
+        if skipped and self.dp.writer:
             print(f"  [guard] skipped {skipped} non-finite batch update(s) this epoch",
                   file=sys.stderr)
 
     # --- main loop -----------------------------------------------------------
 
     def _log_epoch(self, epoch, train_loss, test_loss, dt, steps_per_epoch):
-        print(
-            "[{epoch:04}]: Train {train}, Test {test}  ({dt:.2f}s)".format(
-                epoch=epoch, train=train_loss, test=test_loss, dt=dt
-            )
-        )
+        if self.dp.writer:
+            print("[{epoch:04}]: Train {train}, Test {test}  ({dt:.2f}s)".format(
+                epoch=epoch, train=train_loss, test=test_loss, dt=dt))
         self.train_all.append(train_loss)
         self.test_all.append(test_loss)
         extra = {"skipped_steps": self._last_skipped} if self._guard else {}
@@ -260,11 +298,12 @@ class Trainer:
         )
 
     def train(self, ds, epochs: int, retrain: bool = False):
-        print("\nTraining...\n")
-        stamp_dataset(self.model_dir, ds)
+        if self.dp.writer:
+            print("\nTraining...\n")
+            stamp_dataset(self.model_dir, ds)
         self.init_state(retrain)
         self._device_data = {}
-        batch_size = int(self.model.config.batch_size)
+        batch_size = self.dp.round_up_batch(int(self.model.config.batch_size))
         steps_per_epoch = -(-ds.train_in_batch.shape[0] // batch_size)
         lowest_train = float("inf")
         for epoch in range(epochs):
@@ -283,5 +322,6 @@ class Trainer:
                 lowest_train = train_loss
         self._save(checkpoint.LAST)
         self.saver.flush(self.model_dir)
+        self.dp.barrier()  # rank 0's files are on disk before any rank reads them
         done_extra = {"skipped_steps": self.skipped_steps} if self._guard else {}
         self.metrics.log(event="done", epochs=epochs, best_train=lowest_train, **done_extra)

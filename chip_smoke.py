@@ -207,6 +207,23 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    launch); (d) the ``BucketedPredictor`` cost fit over B = 1, 2, 4, 8,
    16, 32 that gives the planner's ``MEASURED_COST``; and the host
    cost per call of the custom op against the direct wrapper.
+12. process groups (``cbfssm_tpu_torch.parallel``), CBFSSM at the
+   RoboMove width in float64, ``gp_impl='pallas'``, on windows cut to 64
+   train (2 Adam steps of 32) and 32 test (1 batch): (a) a one-rank NCCL
+   group in this process: ``Trainer(mesh=process_mesh((1,), ('data',)))``
+   bitwise equal to the meshless epoch in losses and params; (b) a gloo
+   group of 2 spawned ranks on the one card (NCCL takes one rank a GPU;
+   a ``FileStore`` under ``build/``): the ``Trainer(mesh=make_mesh())``
+   epoch at 16 rows a rank, losses and params within rtol 1e-10 of (a)'s
+   meshless run and params bitwise equal across ranks; a
+   ``ParticleParallel`` loss and gradient on a particle mesh of 2 (S 25
+   a rank) against the serial emulation in this process (rtol 1e-10);
+   a 2-lane ``MultiSeedTrainer(mesh=)`` epoch (1 lane a rank, 1 step)
+   against the unsharded 2 lanes (rtol 1e-10); the census of one meshed
+   step (one all-reduce of the parameter bytes, one of the scalars) and
+   of one lane step (none). Per rank it prints the step ms and the
+   gradient all-reduce ms. A rank that fails, dies or hangs fails the
+   phase.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
 four, phase 5's ``training_hand`` and ``trainer_profile``, phase 7's
@@ -220,7 +237,9 @@ counted by the subprocess itself) and phase 10's six
 ``filter_fleet_1024``, ``cli_serve_filter`` and ``filter_voliro``) and
 phase 11's four (``export_predictor``, ``cli_serve_artifact``,
 ``export_pool`` and ``cli_serve_pool``, the two served ones counted by
-their subprocesses):
+their subprocesses) and phase 12's four (``dp_nccl_1``; and per rank,
+held on both ranks and listed from rank 0, ``dp_gloo_2``,
+``particle_gloo_2`` and ``lanes_mesh_2``):
 each sets the launch counts of all four kernels to 0 just before it
 (``reset_launches``) and reads all four just after (``launch_counts``),
 and the kernels line lists them by path (``launches_by_path``;
@@ -3433,6 +3452,400 @@ def phase_export(card: str, half_params=None):
     return paths, fit, host_us
 
 
+# --- phase 12: process groups -------------------------------------------------
+
+MESH_TRAIN, MESH_TEST = 64, 32  # phase 12's cut windows: 2 Adam steps, 1 test batch
+MESH_LANE_TRAIN = 32  # its lane run: 1 step of each of 2 lanes, 1 test batch
+MESH_SEED = 5  # the batch seed of the ParticleParallel loss
+
+
+class _Windows:
+    """A windowed dataset from its arrays (``train_in_batch``, ...)."""
+
+    def __init__(self, **arrays):
+        self.__dict__.update(arrays)
+
+
+def mesh_arrays(ds, n_train: int) -> dict:
+    return {"train_in_batch": ds.train_in_batch[:n_train],
+            "train_out_batch": ds.train_out_batch[:n_train],
+            "test_in_batch": ds.test_in_batch[:MESH_TEST],
+            "test_out_batch": ds.test_out_batch[:MESH_TEST]}
+
+
+def mesh_train(model, model_dir, ds, mesh, epochs: int = 1):
+    """``Trainer(model, model_dir, seed=0, mesh=mesh).train(ds)`` with each
+    ``train_step`` and each gradient reduction timed on the host clock
+    (both ending in a device sync). Returns the trainer, the step ms and
+    the gradient all-reduce ms."""
+    from cbfssm_tpu_torch.training import Trainer
+
+    trainer = Trainer(model, model_dir, seed=0, mesh=mesh)
+    steps, reduces = [], []
+
+    def timed(fn, times):
+        def call(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    trainer.train_step = timed(trainer.train_step, steps)
+    trainer.dp.reduce_grads = timed(trainer.dp.reduce_grads, reduces)
+    trainer.train(ds, epochs=epochs)
+    del trainer.train_step, trainer.dp.reduce_grads
+    return trainer, steps, reduces
+
+
+def host_leaves(tensors) -> list:
+    return [t.detach().cpu().numpy().copy() for t in tensors]
+
+
+def first_batch(model, ds, batch: int):
+    """(u, y) of the first ``batch`` training windows on the card."""
+    import torch
+
+    kw = dict(dtype=model.dtype, device=DEVICE)
+    return (torch.as_tensor(ds.train_in_batch[:batch], **kw),
+            torch.as_tensor(ds.train_out_batch[:batch], **kw))
+
+
+def particle_serial(model_cls, cfg, params, u, y, n: int):
+    """The serial emulation of a ParticleParallel loss on a particle mesh
+    of ``n``: each shard's S / n particles drawn from its seed
+    (``fold_seed(MESH_SEED, idx)``), one shard after the other, summed.
+    Returns (loss, gradient leaves)."""
+    import torch
+
+    from cbfssm_tpu_torch.config import as_config
+    from cbfssm_tpu_torch.streams import fold_seed
+
+    cfg = as_config(cfg)
+    local = model_cls(dataclasses.replace(cfg, samples=cfg.samples // n), device=DEVICE)
+    leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
+    total = 0.0
+    for idx in range(n):
+        gen = torch.Generator(device=DEVICE).manual_seed(fold_seed(MESH_SEED, idx))
+        _, aux = local.loss(params.with_tensors(leaves), u, y, gen, True)
+        total = total + aux["particle_sum"]
+    loss = -(total / cfg.samples + aux["global_term"])
+    return float(loss.detach()), host_leaves(torch.autograd.grad(loss, leaves))
+
+
+def mesh_rank(rank: int, world: int, store: str, spec: dict, queue) -> None:
+    """One rank of phase 12 (b), spawned: a gloo group of ``world`` ranks
+    on the one card. Puts ``(rank, results, None)`` or ``(rank, None,
+    traceback)`` on ``queue``."""
+    global DEVICE
+    import traceback
+
+    DEVICE = spec["device"]
+    from cbfssm_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize(coordinator_address=f"file://{store}", num_processes=world,
+                               process_id=rank, local_device_ids=0, backend="gloo")
+        queue.put((rank, mesh_rank_paths(spec), None))
+    except Exception:  # fail() exits the rank instead: the parent sees it die
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        distributed.shutdown()
+
+
+def mesh_rank_paths(spec: dict) -> dict:
+    """Phase 12 (b) on this rank: the meshed Trainer, the ParticleParallel
+    loss and gradient, the seed-sharded lanes, each between
+    ``reset_launches`` and ``launch_counts``, then the census of one
+    meshed step and of one lane step (not counted)."""
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.parallel import DataParallel, ParticleParallel, census, make_mesh
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    cfg = spec["config"]
+    ds = _Windows(**spec["ds"])
+    lane_ds = _Windows(**spec["lane_ds"])
+    mesh = make_mesh(device=DEVICE)
+    out = {}
+    reset_launches()
+    tr, steps, reduces = mesh_train(CBFSSM(cfg, device=DEVICE), spec["dir"], ds, mesh)
+    out["dp"] = dict(counts=launch_counts(), train_all=tr.train_all, test_all=tr.test_all,
+                     params=host_leaves(tr.params.tensors()), step_ms=steps, reduce_ms=reduces)
+    u, y = first_batch(tr.model, ds, int(cfg["batch_size"]))
+    w = torch.ones(u.shape[0], dtype=u.dtype, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(MESH_SEED)
+    with census.record() as items:
+        tr.train_step(u, y, w, gen, None)
+    out["dp"].update(census=items, param_bytes=sum(p.numel() * p.element_size()
+                                                   for p in tr.params.tensors()))
+
+    pp = ParticleParallel(CBFSSM, cfg, make_mesh(axis_name="particle", device=DEVICE),
+                          device=DEVICE)
+    params = pp.init(torch.Generator(device=DEVICE).manual_seed(0))
+    leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    loss, _ = pp.loss(params.with_tensors(leaves), u, y, MESH_SEED)
+    grads = list(torch.autograd.grad(loss, leaves))
+    DataParallel(pp.mesh).reduce_grads(grads)
+    sync()
+    out["particle"] = dict(counts=launch_counts(), loss=float(loss.detach()),
+                           grads=host_leaves(grads),
+                           ms=1e3 * (time.perf_counter() - t0))
+
+    reset_launches()
+    ms = MultiSeedTrainer(CBFSSM(cfg, device=DEVICE), spec["lane_dir"], n_seeds=2, mesh=mesh)
+    ms.train(lane_ds, epochs=1)
+    out["lanes"] = dict(counts=launch_counts(), train_all=ms.train_all, test_all=ms.test_all,
+                        params=host_leaves(ms.params.tensors()))
+    ms.init_state()
+    data_u, data_y = ms._stage("train", lane_ds.train_in_batch, lane_ds.train_out_batch)
+    b = int(cfg["batch_size"])
+    idx, w = ms._epoch_indices(data_u.shape[0], b, shuffle=True)
+    rows = torch.as_tensor(idx[:, 0].astype("int64"), device=DEVICE)
+    noises = ms._noises(0, 0, 0, b, data_u.shape[1])
+    with census.record() as items:
+        ms.train_step(data_u[rows], data_y[rows], torch.as_tensor(w[:, 0], device=DEVICE),
+                      noises)
+    out["lanes"]["census"] = items
+    return out
+
+
+def spawn_ranks(world: int, spec: dict, store_dir: str, timeout: float = 600.0) -> list:
+    """``mesh_rank`` in ``world`` spawned processes; their results in rank
+    order. Fails if a rank fails, dies or outlasts ``timeout``; every
+    process is joined or killed before it returns."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = f"{store_dir}/store"
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, store, spec, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) + len(errors) < world:
+            if time.monotonic() > deadline:
+                errors[-1] = f"ranks outlasted {timeout} s"
+                break
+            try:
+                rank, res, err = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)
+                        and r not in results and r not in errors]
+                for r in dead:
+                    errors[r] = f"died with exit code {procs[r].exitcode}"
+                continue
+            if err:
+                errors[rank] = err
+            else:
+                results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail("phase 12: " + "; ".join(f"rank {r}: {e}" for r, e in sorted(errors.items())))
+    return [results[r] for r in range(world)]
+
+
+def close_leaves(got, want, rtol: float) -> float:
+    """The largest error over the largest entry, leaf by leaf; fails
+    unless every entry is within rtol, with atol rtol x the leaf's
+    largest entry."""
+    import numpy as np
+
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(got, want, strict=True)):
+        scale = float(np.abs(b).max()) if b.size else 0.0
+        err = np.abs(a - b)
+        if (err > rtol * np.abs(b) + rtol * scale).any():
+            return float("inf")
+        worst = max(worst, float(err.max()) / max(scale, 1e-300) if b.size else 0.0)
+    return worst
+
+
+def nccl_world_1(card: str, model_cfg: dict, ds):
+    """Phase 12 (a): a one-rank NCCL group in this process: the cut
+    epoch through ``Trainer(mesh=process_mesh((1,), ('data',)))``, its
+    launches counted, bitwise against the meshless epoch. Returns the
+    counts and the meshless run (the reference of (b))."""
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.parallel import distributed
+
+    runs = {}
+    with tempfile_dir() as tmp:
+        flat = mesh_train(CBFSSM(model_cfg, device=DEVICE), f"{tmp}/flat", ds, None)
+        distributed.initialize(coordinator_address=f"file://{tmp}/nccl_store", num_processes=1,
+                               process_id=0, local_device_ids=0,
+                               backend="nccl" if DEVICE == "cuda" else "gloo")
+        try:
+            mesh = distributed.process_mesh((1,), ("data",), device=DEVICE)
+            reset_launches()
+            meshed = mesh_train(CBFSSM(model_cfg, device=DEVICE), f"{tmp}/mesh", ds, mesh)
+            counts = read_launches("dp_nccl_1", (STEPS_PER_CHUNK, 2 * STEPS_PER_CHUNK, 0, 0),
+                                   f"2 steps x {STEPS_PER_CHUNK} residual, 1 test batch x "
+                                   f"{STEPS_PER_CHUNK}")
+        finally:
+            distributed.shutdown()
+    for name, (tr, steps, reduces) in (("flat", flat), ("mesh", meshed)):
+        runs[name] = (tr.train_all, tr.test_all, host_leaves(tr.params.tensors()), steps,
+                      reduces)
+    if runs["mesh"][:2] != runs["flat"][:2]:
+        fail(f"dp_nccl_1: losses {runs['mesh'][:2]} != meshless {runs['flat'][:2]}")
+    if not all((a == b).all() for a, b in zip(runs["mesh"][2], runs["flat"][2], strict=True)):
+        fail("dp_nccl_1: params after 2 steps differ from the meshless run's")
+    print(f"process groups dp_nccl_1: NCCL world 1, 2 Adam steps of B={BATCH} float64 + 1 test "
+          f"batch bitwise equal to the meshless run (train {runs['flat'][0]!r}, test "
+          f"{runs['flat'][1]!r}); launches {counts}; step ms meshed {fmt_list(runs['mesh'][3])} "
+          f"(meshless {fmt_list(runs['flat'][3])}), gradient all-reduce ms "
+          f"{fmt_list(runs['mesh'][4])}; {card}", flush=True)
+    return counts, runs["flat"]
+
+
+def fmt_list(times) -> str:
+    return "[" + ", ".join(f"{t:.2f}" for t in times) + "]"
+
+
+@contextlib.contextmanager
+def tempfile_dir():
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        yield tmp
+
+
+def phase_mesh(card: str):
+    """Phase 12: meshed training in process groups, float64 at the full
+    RoboMove width. (a) NCCL world 1 in this process; (b) a gloo group of
+    2 spawned ranks on the one card: the meshed Trainer, ParticleParallel
+    and the seed-sharded lanes against this process's runs, launches
+    held per rank, and the census. Returns the four paths' counts."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.parallel import census
+    from cbfssm_tpu_torch.training import MultiSeedTrainer
+
+    cfg = config("float64", "pallas")
+    full = robomove()
+    ds = _Windows(**mesh_arrays(full, MESH_TRAIN))
+    lane_ds = _Windows(**mesh_arrays(full, MESH_LANE_TRAIN))
+    nccl_counts, flat = nccl_world_1(card, cfg, ds)
+    # this process's references for (b)
+    model = CBFSSM(cfg, device=DEVICE)
+    u, y = first_batch(model, ds, BATCH)
+    pp_loss, pp_grads = particle_serial(CBFSSM, cfg, model.init(
+        torch.Generator(device=DEVICE).manual_seed(0)), u, y, 2)
+    with tempfile_dir() as tmp:
+        ms = MultiSeedTrainer(model, tmp, n_seeds=2)
+        ms.train(lane_ds, epochs=1)
+        lanes = (ms.train_all, ms.test_all, host_leaves(ms.params.tensors()))
+    with tempfile_dir() as tmp:
+        spec = {"device": DEVICE, "config": cfg, "ds": mesh_arrays(full, MESH_TRAIN),
+                "lane_ds": mesh_arrays(full, MESH_LANE_TRAIN), "dir": f"{tmp}/dp",
+                "lane_dir": f"{tmp}/lanes"}
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, spec, tmp)
+        spawn_s = time.perf_counter() - t0
+    rules = {"dp_gloo_2": ((STEPS_PER_CHUNK, 2 * STEPS_PER_CHUNK, 0, 0),
+                           f"per rank: 2 steps x {STEPS_PER_CHUNK} residual, 1 test batch x "
+                           f"{STEPS_PER_CHUNK}"),
+             "particle_gloo_2": ((0, STEPS_PER_CHUNK, 0, 0),
+                                 f"per rank: 1 loss and gradient x {STEPS_PER_CHUNK} residual"),
+             "lanes_mesh_2": ((0, 0, STEPS_PER_CHUNK, STEPS_PER_CHUNK),
+                              f"per rank: 1 lane step x {STEPS_PER_CHUNK} residual lanes, 1 "
+                              f"test batch x {STEPS_PER_CHUNK} lanes")}
+    keys = {"dp_gloo_2": "dp", "particle_gloo_2": "particle", "lanes_mesh_2": "lanes"}
+    for path, (want, rule) in rules.items():
+        for rank, out in enumerate(ranks):
+            if out[keys[path]]["counts"] != want:
+                fail(f"{path} rank {rank}: {COUNTERS} launches {out[keys[path]]['counts']} != "
+                     f"{want} = {rule}")
+    dp0, dp1 = ranks[0]["dp"], ranks[1]["dp"]
+    for rank, out in enumerate(ranks):
+        dp = out["dp"]
+        if not (np.allclose(dp["train_all"], flat[0], rtol=1e-10, atol=0)
+                and np.allclose(dp["test_all"], flat[1], rtol=1e-10, atol=0)):
+            fail(f"dp_gloo_2 rank {rank}: losses {dp['train_all']} / {dp['test_all']} vs "
+                 f"single-process {flat[0]} / {flat[1]} (rtol 1e-10)")
+    dp_err = close_leaves(dp0["params"], flat[2], 1e-10)
+    if dp_err == float("inf"):
+        fail("dp_gloo_2: params after 2 steps vs the single-process run beyond rtol 1e-10")
+    if not all((a == b).all() for a, b in zip(dp0["params"], dp1["params"], strict=True)):
+        fail("dp_gloo_2: the two ranks' params differ")
+    pp_err = 0.0
+    for rank, out in enumerate(ranks):
+        pp = out["particle"]
+        if abs(pp["loss"] - pp_loss) > 1e-10 * abs(pp_loss):
+            fail(f"particle_gloo_2 rank {rank}: loss {pp['loss']!r} vs serial {pp_loss!r}")
+        err = close_leaves(pp["grads"], pp_grads, 1e-10)
+        if err == float("inf"):
+            fail(f"particle_gloo_2 rank {rank}: gradient beyond rtol 1e-10 of the serial one")
+        pp_err = max(pp_err, err)
+    lane_err = 0.0
+    for rank, out in enumerate(ranks):
+        ln = out["lanes"]
+        if not (np.allclose(np.stack(ln["train_all"]), np.stack(lanes[0]), rtol=1e-10, atol=0)
+                and np.allclose(np.stack(ln["test_all"]), np.stack(lanes[1]), rtol=1e-10,
+                                atol=0)):
+            fail(f"lanes_mesh_2 rank {rank}: lane losses {ln['train_all']} / {ln['test_all']} "
+                 f"vs unsharded {lanes[0]} / {lanes[1]} (rtol 1e-10)")
+        err = close_leaves(ln["params"], lanes[2], 1e-10)
+        if err == float("inf"):
+            fail(f"lanes_mesh_2 rank {rank}: params beyond rtol 1e-10 of the unsharded lanes")
+        lane_err = max(lane_err, err)
+    for rank, out in enumerate(ranks):
+        items = out["dp"]["census"]
+        census.assert_data_parallel_contract(items, out["dp"]["param_bytes"],
+                                             context=f"dp_gloo_2 rank {rank} step")
+        grads = [c for c in items if c.result_bytes == out["dp"]["param_bytes"]]
+        if len(grads) != 1 or len(items) != 2:
+            fail(f"dp_gloo_2 rank {rank}: census {census.describe(items)} is not one gradient "
+                 "all-reduce and one scalar all-reduce")
+        if out["lanes"]["census"]:
+            fail(f"lanes_mesh_2 rank {rank}: a lane step ran "
+                 f"{census.describe(out['lanes']['census'])}")
+    for rank, out in enumerate(ranks):
+        dp = out["dp"]
+        print(f"process groups dp_gloo_2 rank {rank}: gloo world 2 on one card, 2 Adam steps "
+              f"of {BATCH // 2} rows + 1 test batch, float64; losses {dp['train_all']!r} / "
+              f"{dp['test_all']!r} within rtol 1e-10 of the single-process run; step ms "
+              f"{fmt_list(dp['step_ms'])}, gradient all-reduce ms {fmt_list(dp['reduce_ms'])} "
+              f"({dp['param_bytes']} B); launches {dp['counts']}; {card}", flush=True)
+        print(f"  census of one meshed step: {census.describe(dp['census'])}", flush=True)
+        pp = out["particle"]
+        print(f"process groups particle_gloo_2 rank {rank}: S {cfg['samples'] // 2} a rank, loss "
+              f"{pp['loss']!r} "
+              f"vs serial {pp_loss!r}, loss + gradient + reduction {pp['ms']:.2f} ms; launches "
+              f"{pp['counts']}; {card}", flush=True)
+        print(f"process groups lanes_mesh_2 rank {rank}: 1 lane a rank, lane losses "
+              f"{[a.tolist() for a in out['lanes']['train_all']]}; launches "
+              f"{out['lanes']['counts']}; lane step census: "
+              f"{census.describe(out['lanes']['census'])}; {card}", flush=True)
+    print(f"process groups: 2 gloo ranks spawned, run and joined in {spawn_s:.2f} s; params "
+          f"after 2 steps within {dp_err:.3e} (largest error / largest entry) of the "
+          f"single-process run and bitwise equal across ranks; ParticleParallel gradient within "
+          f"{pp_err:.3e} of the serial emulation; lane params within {lane_err:.3e}", flush=True)
+    return {"dp_nccl_1": nccl_counts, "dp_gloo_2": ranks[0]["dp"]["counts"],
+            "particle_gloo_2": ranks[0]["particle"]["counts"],
+            "lanes_mesh_2": ranks[0]["lanes"]["counts"]}
+
+
 def main() -> None:
     if not (ROOT / "cbfssm_tpu_torch" / "__init__.py").is_file():
         fail("cbfssm_tpu_torch/ is not beside chip_smoke.py; run from the repository")
@@ -3460,12 +3873,13 @@ def main() -> None:
     filter_kernels, filter_paths = timed("10 online filtering", phase_filters, card,
                                          half_params)
     export_paths, cost_fit, op_host_us = timed("11 export", phase_export, card, half_params)
+    mesh_paths = timed("12 process groups", phase_mesh, card)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
     # the four launch counts (COUNTERS) of every main path, as measured
     paths = {"serving": serving, "training": training, **training_paths, **other, **new_paths,
-             **lane_paths, **cli_paths, **filter_paths, **export_paths}
+             **lane_paths, **cli_paths, **filter_paths, **export_paths, **mesh_paths}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []

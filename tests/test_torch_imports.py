@@ -49,6 +49,9 @@ import cbfssm_tpu_torch.serving_http, cbfssm_tpu_torch.__main__
 import cbfssm_tpu_torch.export, cbfssm_tpu_torch.export_pool, cbfssm_tpu_torch.streams
 import cbfssm_tpu_torch.predict_output, cbfssm_tpu_torch.models.adjoint
 import cbfssm_tpu_torch.ops.gp_adjoint, cbfssm_tpu_torch.ops.parallel_vjp
+import cbfssm_tpu_torch.parallel, cbfssm_tpu_torch.parallel.distributed
+import cbfssm_tpu_torch.parallel.sharding, cbfssm_tpu_torch.parallel.particle
+import cbfssm_tpu_torch.parallel.census
 import chip_smoke
 """ + NOT_LOADED
 
