@@ -103,3 +103,13 @@ def check_precision(dtype, device) -> None:
             "torch.backends.cuda.matmul.allow_tf32 is on (also set by "
             "torch.set_float32_matmul_precision('high')): a float32 model on "
             "the GPU runs its matmuls in IEEE float32; set it to False")
+
+
+def check_epochs_per_dispatch(epd) -> None:
+    """Raise unless ``epd`` is 'auto' or an integer, the values the
+    trainers' ``resolve_epochs_per_dispatch`` reads."""
+    if isinstance(epd, str) and epd == "auto":
+        return
+    if isinstance(epd, (bool, np.bool_)) or not isinstance(epd, (int, np.integer)):
+        raise ValueError("epochs_per_dispatch (fused multi-epoch dispatch, ROADMAP A4.1) must "
+                         f"be 'auto' or an integer, got {epd!r}")

@@ -14,6 +14,7 @@ import numpy as np
 import scipy.io
 from scipy.ndimage import gaussian_filter1d
 
+from cbfssm_tpu_torch import native
 from cbfssm_tpu_torch.utils import rotations
 
 _LOG_KEYS = [
@@ -74,6 +75,9 @@ def unwrap_euler_angles(vec: np.ndarray, threshold: float = 2.0 / 3.0 * np.pi) -
         vec = vec[:, None]
     if vec.ndim != 2:
         raise ValueError(f"expected [T] or [T, channels] angle series, got {vec.shape}")
+    result = native.unwrap_angles(vec, threshold)  # None without the library
+    if result is not None:
+        return result[:, 0] if squeeze else result
     out = np.zeros_like(vec)
     out[0] = vec[0]
     for k in range(vec.shape[1]):

@@ -8,7 +8,7 @@ import math
 import numpy as np
 import torch
 
-from cbfssm_tpu_torch.config import as_config, check_precision
+from cbfssm_tpu_torch.config import as_config, check_epochs_per_dispatch, check_precision
 from cbfssm_tpu_torch.models import recognition
 from cbfssm_tpu_torch.ops import gp, transforms
 from cbfssm_tpu_torch.ops.distributions import diag_gaussian_logpdf
@@ -37,8 +37,8 @@ class BaseSSM:
 
     ``device`` places parameters, noise draws and computation: the card
     unless the caller asks for ``"cpu"``. The config keys and their
-    checks are the JAX package's. Fused multi-epoch dispatch, which
-    belongs to the TPU, is accepted at its default only. ``adjoint``
+    checks are the JAX package's (``epochs_per_dispatch``, read by the
+    trainers, must be 'auto' or an integer). ``adjoint``
     picks the gradient schedule among the model's
     ``SUPPORTED_ADJOINTS``: 'auto' and 'autodiff' are autograd, 'hand'
     (CBFSSM) and 'parallel' (Voliro) need ``gp_impl='solve_free'``.
@@ -86,11 +86,7 @@ class BaseSSM:
         self._parallel_adjoint = self.config.adjoint == "parallel"
         if self.config.adjoint in ("hand", "parallel") and self.config.gp_impl != "solve_free":
             raise ValueError(f"adjoint={self.config.adjoint!r} requires gp_impl='solve_free'")
-        if self.config.epochs_per_dispatch != "auto":
-            raise ValueError(
-                "epochs_per_dispatch (fused multi-epoch dispatch) is not "
-                "ported; only the default 'auto' is accepted"
-            )
+        check_epochs_per_dispatch(self.config.epochs_per_dispatch)
         if not isinstance(self.config.skip_nonfinite_updates, (bool, np.bool_)):
             raise ValueError(
                 "skip_nonfinite_updates must be True or False, got "

@@ -33,6 +33,7 @@ import torch
 from cbfssm_tpu_torch.models import adjoint, segmentation
 from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput, hyper
 from cbfssm_tpu_torch.ops import gp, transforms
+from cbfssm_tpu_torch.utils.transfer import upload
 
 
 @dataclass
@@ -175,7 +176,7 @@ class CBFSSM(BaseSSM):
         t_len, b = u_tm.shape[0], u_tm.shape[1]
         s, dh, duy = self.samples, self.dim_h, self.dim_u + self.dim_y
         resample_np, write0_np = segmentation.backward_masks(t_len, self.config.recog_len)
-        resample = torch.as_tensor(resample_np, device=self.device)
+        resample = upload(resample_np, self.device)
         var_x_h = var_x[:dh]
 
         h = torch.zeros((2, b, s, dh), dtype=self.dtype, device=self.device)
@@ -235,7 +236,7 @@ class CBFSSM(BaseSSM):
         zmask_np = np.arange(t_ext)[None, :] == np.asarray(
             [t_len - 1 + s_r for s_r in shifts]
         )[:, None]
-        zmask = torch.as_tensor(zmask_np, device=self.device)
+        zmask = upload(zmask_np, self.device)
 
         z_st = to_steps(zmask, True)
         u_st = to_steps(shift_stack(u_tm), True)
@@ -267,7 +268,7 @@ class CBFSSM(BaseSSM):
 
         # un-shift each run and select the writing run per absolute t
         _, write0_np = segmentation.backward_masks(t_len, recog_len)
-        write0 = torch.as_tensor(write0_np, device=self.device)
+        write0 = upload(write0_np, self.device)
         y2_runs = [outs[r, s_r:s_r + t_len] for r, s_r in enumerate(shifts)]
         ent_runs = [ents[r, s_r:s_r + t_len] for r, s_r in enumerate(shifts)]
         y2 = torch.where(write0[:, None, None, None], y2_runs[0], y2_runs[1])
@@ -354,7 +355,7 @@ class CBFSSM(BaseSSM):
             "kl_z_f": kl_zf,
             "kl_z_b": kl_zb,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.tensor(float(self.samples), **kw),
+            "particle_divisor": torch.full((), float(self.samples), **kw),
             "global_term": global_term,
         }
         return -elbo, aux

@@ -127,7 +127,7 @@ class CBFSSMHALF(RecognitionSSM):
             "kl_x": torch.dot(kl_x, weights),
             "kl_z_f": kl_zf,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.tensor(float(self.samples), dtype=self.dtype,
+            "particle_divisor": torch.full((), float(self.samples), dtype=self.dtype,
                                              device=self.device),
             "global_term": global_term,
         }

@@ -82,7 +82,7 @@ class PRSSM(RecognitionSSM):
             "loglik": torch.dot(loglik, weights),
             "kl_z": kl_z,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.tensor(1.0, dtype=self.dtype, device=self.device),
+            "particle_divisor": torch.full((), 1.0, dtype=self.dtype, device=self.device),
             "global_term": global_term,
         }
         return -elbo, aux

@@ -419,7 +419,7 @@ class Voliro(BaseSSM):
             "n_reg": n_reg,
             "l_reg": l_reg,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.tensor(float(self.samples), **kw),
+            "particle_divisor": torch.full((), float(self.samples), **kw),
             "global_term": global_term,
         }
         return -elbo, aux

@@ -67,7 +67,9 @@ def fused_predict_residuals_plain(x, zs, inv_ls, kvar, kinv, alpha, var_q):
     xs = x * inv_ls.unsqueeze(-2)
     xn = torch.sum(torch.square(xs), dim=-1, keepdim=True)
     zn = torch.sum(torch.square(zs), dim=-1).unsqueeze(-2)
-    d2 = torch.clamp_min(xn - 2.0 * torch.matmul(xs, zs.mT) + zn, 0.0)
+    # zs^T contiguous: CPU BLAS takes another path for a transposed operand
+    # at 2-4 rows, so a row's result would depend on the row count
+    d2 = torch.clamp_min(xn - 2.0 * torch.matmul(xs, zs.mT.contiguous()) + zn, 0.0)
     kmn = kvar * torch.exp(-0.5 * d2)
     w = torch.matmul(kmn, kinv)
     qf = torch.sum(kmn * w, dim=-1, keepdim=True)

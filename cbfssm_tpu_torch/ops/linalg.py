@@ -18,13 +18,20 @@ def default_jitter(dtype) -> float:
 
 
 def jittered_cholesky(mat: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
-    """Lower Cholesky factor of ``mat + jitter * I`` ([..., M, M])."""
+    """Lower Cholesky factor of ``mat + jitter * I`` ([..., M, M]); where
+    the matrix is not positive definite, NaN on and below the diagonal,
+    as ``jnp.linalg.cholesky`` gives. (``cholesky_ex``: ``cholesky``
+    reads the factorization's status back to raise, a host sync on the
+    card at every call.)"""
     dtype = mat.dtype
     if jitter is None:
         jitter = default_jitter(dtype)
     work = mat.to(torch.float64)
     eye = torch.eye(work.shape[-1], dtype=work.dtype, device=work.device)
-    return torch.linalg.cholesky(work + jitter * eye).to(dtype)
+    chol, info = torch.linalg.cholesky_ex(work + jitter * eye)
+    lower = torch.ones(eye.shape, dtype=torch.bool, device=work.device).tril()
+    chol = chol.masked_fill((info != 0)[..., None, None] & lower, torch.nan)
+    return chol.to(dtype)
 
 
 def cholesky_inverse(chol: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from cbfssm_tpu_torch.parallel.local import LocalMesh, canonical_device, model_on, replica
 from cbfssm_tpu_torch.predict_output import PredictOutput
 from cbfssm_tpu_torch.streams import (fold_seed, iter_replay_chunks,  # noqa: F401 (re-exported)
                                       key_seed, normal_draws, normalize_replay_ladder,
@@ -747,29 +748,100 @@ class FilterPool(_Filter):
     does (one shared ``[capacity, ...]`` draw), a forecast at tick
     ``t`` as its forecast. Not thread-safe: drive it from one loop, or
     through :class:`FilterBatcher`. ``state`` / ``load_state`` carry
-    the whole pool (ensemble, tick, session table, base key). ``mesh=``
-    (sharding the capacity axis over devices) is not ported.
+    the whole pool (ensemble, tick, session table, base key).
+
+    Fleet scale-out: ``mesh`` (a :func:`~cbfssm_tpu_torch.parallel.local_mesh`
+    of this process's devices) shards the capacity axis over its
+    ``axis_name`` axis of n devices; ``capacity`` must be a multiple of
+    n. Block b holds rows ``[b C/n, (b+1) C/n)`` on device b; params and
+    operators are replicated, one copy per distinct device. A tick draws
+    the unsharded pool's ``[capacity, ...]`` draw and cuts it into the
+    blocks' rows, issues every block's step on its device, and only then
+    reads the blocks back: no collective, no sync between blocks. Each
+    block computes its rows as the unsharded pool does, so the sessions'
+    results are the unsharded pool's (bitwise wherever the ops' per-row
+    results do not depend on the row count), and ``state`` is the
+    unsharded pool's: a snapshot loads across topologies.
     """
 
+    mesh = None
+
     def __init__(self, model, params, capacity: int, seed: int = 0,
-                 mesh=None, replay_buckets=None):
+                 mesh=None, axis_name: str = "data", replay_buckets=None):
         if mesh is not None:
-            raise ValueError("FilterPool(mesh=...) is not ported (ROADMAP A6.1b)")
+            _check_local_mesh(mesh, axis_name, capacity)
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         super().__init__(model, params, seed, "FilterPool", replay_buckets)
         self.capacity = int(capacity)
+        self.mesh = mesh
         self._init_host_state()
 
     def _init_host_state(self) -> None:
-        """The empty fleet: a zero ensemble, no sessions, tick 0."""
+        """The empty fleet: a zero ensemble in every row block, no
+        sessions, tick 0, no replicas yet."""
         m = self.model
-        self._x = torch.zeros((self.capacity, m.samples, m.dim_x), dtype=m.dtype,
-                              device=m.device)
+        self._replicas = {}  # device -> (model, params, ops) on it
+        self._x = [torch.zeros((self._rows, m.samples, m.dim_x), dtype=m.dtype, device=dev)
+                   for dev in self._devices]
         self._slots: dict = {}  # sid -> slot
         self._free = list(range(self.capacity - 1, -1, -1))  # pop() -> slot 0 first
         self._next_sid = 0
         self._tick = 0
+
+    # --- row blocks --------------------------------------------------------
+
+    @property
+    def _devices(self) -> list:
+        """The device of each row block: the model's alone, unsharded."""
+        if self.mesh is None:
+            return [self.model.device]
+        return list(self.mesh.devices)
+
+    @property
+    def _rows(self) -> int:
+        """Rows in one block."""
+        return self.capacity // len(self._devices)
+
+    def _block_rows(self, b: int) -> slice:
+        return slice(b * self._rows, (b + 1) * self._rows)
+
+    def _replica(self, device):
+        """(model, params, ops) for a block on ``device``: the pool's own
+        on the model's device, else copies made once (and dropped by
+        :meth:`reload_params`)."""
+        device = canonical_device(device)
+        if device == canonical_device(self.model.device):
+            return self.model, self.params, self._ops
+        if device not in self._replicas:
+            self._replicas[device] = (
+                model_on(self.model, device),
+                self.params.with_tensors([t.to(device) for t in self.params.tensors()]),
+                replica(self._ops, device))
+        return self._replicas[device]
+
+    def _blocks(self, *rows_first, draws=None, mask=None):
+        """Per block: (b, (model, params, ops), its rows of each tensor of
+        ``rows_first`` (axis 0), of ``draws`` (the capacity axis, third
+        from the end) and of ``mask`` (axis 1 when 2-D, else 0), each on
+        the block's device)."""
+        for b, dev in enumerate(self._devices):
+            rows = self._block_rows(b)
+            cut = [t[rows].to(dev) for t in rows_first]
+            if draws is not None:
+                cut.append(draws.narrow(-3, rows.start, self._rows).to(dev))
+            if mask is not None:
+                cut.append((mask[:, rows] if mask.dim() == 2 else mask[rows]).to(dev))
+            yield b, self._replica(dev), cut
+
+    def _read_blocks(self, parts):
+        """The blocks' outputs read back, one copy each, joined on rows."""
+        host = [_host(p) for p in parts]
+        return host[0] if len(host) == 1 else np.concatenate(host)
+
+    def _set_row(self, slot: int, value) -> None:
+        b, r = divmod(slot, self._rows)
+        self._x[b][r] = value
 
     # --- session management --------------------------------------------
 
@@ -782,9 +854,10 @@ class FilterPool(_Filter):
         ensembles, tick, table and base key carry over. The new params
         are validated and placed on the pool's own device
         (:func:`validate_params_like`), then ``filter_ops`` is
-        recomputed there."""
+        recomputed there; every block's replica is replaced."""
         self.params = validate_params_like(self.params, params)
         self._ops = self._filter_ops()
+        self._replicas = {}
 
     def attach(self, u_prefix, y_prefix) -> int:
         """Start a session from a recog_len warmup window (the
@@ -808,7 +881,7 @@ class FilterPool(_Filter):
         with torch.no_grad():
             x0 = m.filter_init(self.params, self._dev(u[None]), self._dev(y[None]))
             slot = self._free.pop()
-            self._x[slot] = x0[0]
+            self._set_row(slot, x0[0])
         sid = self._next_sid
         self._next_sid += 1
         self._slots[sid] = slot
@@ -817,7 +890,7 @@ class FilterPool(_Filter):
     def detach(self, sid: int) -> None:
         """End a session; its slot is zeroed and becomes reusable."""
         slot = self._slots.pop(sid)  # KeyError on unknown sid
-        self._x[slot] = 0.0
+        self._set_row(slot, 0.0)
         self._free.append(slot)
 
     # --- step, replay, forecast ------------------------------------------
@@ -844,23 +917,29 @@ class FilterPool(_Filter):
                 )
             u_full[slot], y_full[slot], mask[slot] = u, y, True
         eps = self._draws(self._tick, self._draw_shape((), self.capacity))
+        means, vars_ = [], []
         with torch.no_grad():
-            x_next, (mean, var) = m.filter_step(
-                self.params, self._ops, self._x, self._dev(u_full), self._dev(y_full), eps=eps)
-            keep = torch.as_tensor(mask, device=m.device)[:, None, None]
-            self._x = torch.where(keep, x_next, self._x)
+            # every block is issued before any is read back
+            for b, (model, params, ops), (u_b, y_b, eps_b, keep) in self._blocks(
+                    self._dev(u_full), self._dev(y_full), draws=eps,
+                    mask=torch.as_tensor(mask, device=m.device)):
+                x_next, (mean, var) = model.filter_step(params, ops, self._x[b], u_b, y_b,
+                                                        eps=eps_b)
+                self._x[b] = torch.where(keep[:, None, None], x_next, self._x[b])
+                means.append(mean)
+                vars_.append(var)
         self._tick += 1
-        mean, var = _host(mean), _host(var)  # one readback each, then host fan-out
+        mean, var = self._read_blocks(means), self._read_blocks(vars_)  # then host fan-out
         return {sid: (mean[self._slots[sid]], var[self._slots[sid]]) for sid in inputs}
 
     def replay(self, inputs: dict) -> dict:
         """Catch the sessions in ``inputs``, ``{sid: (u [K_i, du], y
         [K_i, dy])}`` with per-session lengths, up on their backlogs in
-        one ``filter_replay`` per bucket chunk under a ``[K, capacity]``
-        active mask; sessions not listed hold throughout. Equal to the
-        sequential schedule in which tick t carries exactly the sessions
-        with K_i > t. Returns ``{sid: (mean [K_i, dy], var [K_i, dy])}``
-        (numpy)."""
+        one ``filter_replay`` per bucket chunk (and row block) under a
+        ``[K, capacity]`` active mask; sessions not listed hold
+        throughout. Equal to the sequential schedule in which tick t
+        carries exactly the sessions with K_i > t. Returns ``{sid: (mean
+        [K_i, dy], var [K_i, dy])}`` (numpy)."""
         if not inputs:
             raise ValueError("replay() needs at least one session input")
         self._require_replay()
@@ -894,13 +973,18 @@ class FilterPool(_Filter):
         for u_c, y_c, a_c, k_act in iter_replay_chunks(
                 u_full, y_full, self._replay_buckets, active_full=act):
             eps = self._replay_draws(self._tick, u_c.shape[1], self.capacity)
+            chunk_m, chunk_v = [], []
             with torch.no_grad():
-                self._x, (mv, vv) = m.filter_replay(
-                    self.params, self._ops, self._x, self._dev(u_c), self._dev(y_c),
-                    active=torch.as_tensor(a_c, device=m.device), eps=eps)
+                for b, (model, params, ops), (u_b, y_b, eps_b, a_b) in self._blocks(
+                        self._dev(u_c), self._dev(y_c), draws=eps,
+                        mask=torch.as_tensor(a_c, device=m.device)):
+                    self._x[b], (mv, vv) = model.filter_replay(
+                        params, ops, self._x[b], u_b, y_b, active=a_b, eps=eps_b)
+                    chunk_m.append(mv)
+                    chunk_v.append(vv)
             self._tick += k_act
-            means.append(_host(mv)[:, :k_act])
-            vars_.append(_host(vv)[:, :k_act])
+            means.append(self._read_blocks(chunk_m)[:, :k_act])
+            vars_.append(self._read_blocks(chunk_v)[:, :k_act])
         mean = means[0] if len(means) == 1 else np.concatenate(means, axis=1)
         var = vars_[0] if len(vars_) == 1 else np.concatenate(vars_, axis=1)
         return {sid: (mean[slot, :u.shape[0]], var[slot, :u.shape[0]])
@@ -937,9 +1021,14 @@ class FilterPool(_Filter):
                 )
             u_full[slot] = u
         eps = self._draws(2**30 + self._tick, self._draw_shape((h,), self.capacity))
+        means, vars_ = [], []
         with torch.no_grad():
-            mean, var = m.forecast(self.params, self._ops, self._x, self._dev(u_full), eps=eps)
-        mean, var = _host(mean), _host(var)
+            for b, (model, params, ops), (u_b, eps_b) in self._blocks(self._dev(u_full),
+                                                                      draws=eps):
+                mean, var = model.forecast(params, ops, self._x[b], u_b, eps=eps_b)
+                means.append(mean)
+                vars_.append(var)
+        mean, var = self._read_blocks(means), self._read_blocks(vars_)
         return {sid: (mean[self._slots[sid]], var[self._slots[sid]]) for sid in inputs}
 
     # --- failover -------------------------------------------------------
@@ -947,9 +1036,10 @@ class FilterPool(_Filter):
     @property
     def state(self):
         """(ensemble [C, S, dx], tick, {sid: slot}, next_sid, base key
-        uint32[2]): host values, serializable. The key rides along so a
-        standby built with another seed resumes the primary's draws."""
-        return (_host(self._x), self._tick, dict(self._slots), self._next_sid,
+        uint32[2]): host values, serializable, the same for any mesh. The
+        key rides along so a standby built with another seed resumes the
+        primary's draws."""
+        return (self._read_blocks(self._x), self._tick, dict(self._slots), self._next_sid,
                 self._base_key.copy())
 
     def load_state(self, state) -> None:
@@ -957,10 +1047,11 @@ class FilterPool(_Filter):
             (x, tick, slots, next_sid), key = state, None
         else:
             x, tick, slots, next_sid, key = state
-        if np.asarray(x).shape != tuple(self._x.shape):
+        want = (self.capacity, self.model.samples, self.model.dim_x)
+        if np.asarray(x).shape != want:
             raise ValueError(
                 f"state ensemble shape {np.asarray(x).shape} != pool "
-                f"shape {tuple(self._x.shape)}"
+                f"shape {want}"
             )
         # coerce before validating and storing: a string-typed slot
         # ("3") would pass int()-based checks, miss the used-set and hand
@@ -988,12 +1079,31 @@ class FilterPool(_Filter):
                 f"session ids (max {max(int(s) for s in slots)})"
             )
         self._base_key = self._restore_key(key, self._base_key)
-        self._x = self._dev(np.asarray(x)).clone()
+        x = self._dev(np.asarray(x))
+        self._x = [x[self._block_rows(b)].to(dev).clone() for b, dev in enumerate(self._devices)]
         self._tick = int(tick)
         self._slots = slots
         used = set(self._slots.values())
         self._free = [s for s in range(self.capacity - 1, -1, -1) if s not in used]
         self._next_sid = int(next_sid)
+
+
+def _check_local_mesh(mesh, axis_name: str, capacity: int) -> None:
+    """JAX's checks of a pool's mesh, and that it is a local one."""
+    if not isinstance(mesh, LocalMesh):
+        hint = ("a DeviceMesh spans a process group, one rank a device, and the pool is "
+                "one process" if type(mesh).__name__ == "DeviceMesh"
+                else f"got {type(mesh).__name__}")
+        raise ValueError(f"FilterPool(mesh=) takes a parallel.local_mesh of this process's "
+                         f"devices (ROADMAP A6.1b): {hint}")
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {axis_name!r} (axes: {mesh.axis_names})")
+    n_shards = mesh.shape[axis_name]
+    if int(capacity) % n_shards:
+        raise ValueError(
+            f"capacity {int(capacity)} must be a multiple of the "
+            f"mesh {axis_name!r} axis size {n_shards}"
+        )
 
 
 class _CoalescingBatcher:

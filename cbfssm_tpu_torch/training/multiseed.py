@@ -54,9 +54,16 @@ each epoch's end the per-lane losses, and at each save the stacked
 state, are gathered to every rank; rank 0 alone writes files and
 prints, and after ``train`` every rank holds the unsharded state. The
 gathers go through the CPU (``all_gather_object``: gloo has no
-all-gather of CUDA tensors). Not ported: fused multi-epoch dispatch
-(``epochs_per_dispatch`` other than 'auto', an A4.1 follow-up), rejected
-with a ``ValueError``.
+all-gather of CUDA tensors).
+
+Fused multi-epoch dispatch (``epochs_per_dispatch``), as in ``Trainer``:
+a block of k epochs is issued with no host sync, each lane's running best
+loss, params and optimizer state chained on the device under
+``torch.where``, and block k+1 is issued before the host reads block k
+back (logging, the gathers of a mesh, the best checkpoint). ``best_*``
+then point at the last block the host has read. Both schedules issue
+the same operations in the same order: bitwise equal losses and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -71,18 +78,20 @@ import torch
 import torch.distributed as dist
 from torch.func import vmap
 
+from cbfssm_tpu_torch.config import check_epochs_per_dispatch
 from cbfssm_tpu_torch.parallel import distributed
 from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint
-from cbfssm_tpu_torch.training.trainer import epoch_indices, stamp_dataset, stamp_model_meta
+from cbfssm_tpu_torch.training.trainer import (BETA1, BETA2, EPS, adam_leaf, epoch_indices,
+                                               resolve_epochs_per_dispatch, stamp_dataset,
+                                               stamp_model_meta)
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger
+from cbfssm_tpu_torch.utils.transfer import host_copy, ready_event, upload
 
 # Stacked [n_seeds, ...] checkpoints get their own names, so that a
 # single-model consumer never loads a stacked tree by accident.
 BEST_SEEDS = "best_seeds.ckpt"
 LAST_SEEDS = "model_seeds.ckpt"
-
-BETA1, BETA2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
 def _seed(entropy) -> int:
@@ -158,18 +167,8 @@ class LaneAdam:
         step_size = self.lr / bc1
         for p, g, m, v in zip(self.leaves, grads, self.exp_avg, self.exp_avg_sq):
             shape = (lanes,) + (1,) * (p.dim() - 1)
-            m_new = m.lerp(g, 1.0 - BETA1)
-            v_new = torch.addcmul(v * BETA2, g, g, value=1.0 - BETA2)
-            denom = torch.sqrt(v_new) / bc2_sqrt.to(p.dtype).view(shape) + EPS
-            p_new = p - step_size.to(p.dtype).view(shape) * m_new / denom
-            if ok is not None:
-                keep = ~ok.view(shape)
-                m_new = torch.where(keep, m, m_new)
-                v_new = torch.where(keep, v, v_new)
-                p_new = torch.where(keep, p, p_new)
-            m.copy_(m_new)
-            v.copy_(v_new)
-            p.copy_(p_new)
+            adam_leaf(p, g, m, v, step_size.to(p.dtype).view(shape),
+                      bc2_sqrt.to(p.dtype).view(shape), None if ok is None else ~ok.view(shape))
         self.step_count.copy_(count)
 
 
@@ -207,17 +206,17 @@ class MultiSeedTrainer:
     of all ``n_seeds`` lanes, e.g. a converted ``jax.vmap(model.init)``)
     replaces the lanes' inits, and ``noise_fn(epoch, split, i, lane, b,
     t_len) -> noise | None`` replaces a lane's draws (``lane`` is the
-    global lane index).
+    global lane index). ``epochs_per_dispatch`` (None: the config's) sets
+    the epochs of a block.
     """
 
     def __init__(self, model, model_dir, n_seeds: int, seed: int = 0, mesh=None,
                  seed_axis: str = "data", metrics_path=None, epochs_per_dispatch=None,
                  init_params=None, noise_fn=None):
         check_mesh(mesh, type(self).__name__)
-        if epochs_per_dispatch not in (None, "auto"):
-            raise ValueError(
-                "MultiSeedTrainer(epochs_per_dispatch=...) (fused multi-epoch dispatch) is not "
-                "ported (ROADMAP A4.1 follow-up); only 'auto' is accepted")
+        self.epochs_per_dispatch = (model.config.epochs_per_dispatch
+                                    if epochs_per_dispatch is None else epochs_per_dispatch)
+        check_epochs_per_dispatch(self.epochs_per_dispatch)
         self.model = model
         self.model_dir = model_dir
         self.device = model.device
@@ -324,10 +323,9 @@ class MultiSeedTrainer:
 
     def _stage(self, tag, data_in, data_out):
         """The windowed dataset on the model's device, once per train()."""
-        if tag not in self._device_data:
-            kw = dict(dtype=self.model.dtype, device=self.device)
-            self._device_data[tag] = (torch.as_tensor(np.asarray(data_in), **kw),
-                                      torch.as_tensor(np.asarray(data_out), **kw))
+        if tag not in self._device_data:  # uploaded without a host sync
+            self._device_data[tag] = (upload(data_in, self.device, self.model.dtype),
+                                      upload(data_out, self.device, self.model.dtype))
         return self._device_data[tag]
 
     def _single_indices(self, n, batch_size, shuffle: bool):
@@ -393,10 +391,13 @@ class MultiSeedTrainer:
         return losses.detach(), applied
 
     def _epoch_train(self, ds, batch_size, epoch):
+        """Issue one training epoch of every held lane; returns the lanes'
+        mean losses and skipped-batch counts ([lanes] each) on the
+        device."""
         data_u, data_y = self._stage("train", ds.train_in_batch, ds.train_out_batch)
         idx, w = self._epoch_indices(data_u.shape[0], batch_size, shuffle=True)
-        idx_d = torch.as_tensor(idx.astype(np.int64), device=self.device)
-        w_d = torch.as_tensor(w, device=self.device)
+        idx_d = upload(idx.astype(np.int64), self.device)
+        w_d = upload(w, self.device)
         t_len = data_u.shape[1]
         losses, applied = [], []
         for i in range(idx.shape[1]):
@@ -405,22 +406,23 @@ class MultiSeedTrainer:
                                        self._noises(epoch, 0, i, batch_size, t_len))
             losses.append(loss)
             applied.append(ok)
-        skipped = (~torch.stack(applied)).sum(dim=0).cpu().numpy()
-        return torch.stack(losses).mean(dim=0).cpu().numpy().astype(np.float64), skipped
+        return torch.stack(losses).mean(dim=0), (~torch.stack(applied)).sum(dim=0)
 
     @torch.no_grad()
     def _epoch_eval(self, ds, batch_size, epoch):
+        """Issue one test-set evaluation of every held lane; returns the
+        lanes' mean losses ([lanes]) on the device."""
         data_u, data_y = self._stage("test", ds.test_in_batch, ds.test_out_batch)
         idx, w = self._single_indices(data_u.shape[0], batch_size, shuffle=False)
-        idx_d = torch.as_tensor(idx.astype(np.int64), device=self.device)
-        w_d = torch.as_tensor(w, device=self.device)
+        idx_d = upload(idx.astype(np.int64), self.device)
+        w_d = upload(w, self.device)
         t_len = data_u.shape[1]
         losses = [
             self.lane_losses(self.params, data_u[idx_d[i]], data_y[idx_d[i]], w_d[i],
                              self._noises(epoch, 1, i, batch_size, t_len), lanes_data=False)
             for i in range(idx.shape[0])
         ]
-        return torch.stack(losses).mean(dim=0).cpu().numpy().astype(np.float64)
+        return torch.stack(losses).mean(dim=0)
 
     # --- the mesh -------------------------------------------------------------
 
@@ -451,6 +453,9 @@ class MultiSeedTrainer:
 
     # --- main loop -------------------------------------------------------------
 
+    def _resolve_epd(self, steps_per_epoch: int, epochs: int) -> int:
+        return resolve_epochs_per_dispatch(self.epochs_per_dispatch, steps_per_epoch, epochs)
+
     def train(self, ds, epochs: int, retrain: bool = False):
         if self._writer:
             print(f"\nTraining {self.n_seeds} seeds (vmapped)...\n")
@@ -458,21 +463,46 @@ class MultiSeedTrainer:
         self.init_state(retrain)
         self._device_data = {}
         batch_size = int(self.model.config.batch_size)
-        for epoch in range(epochs):
+        steps_per_epoch = -(-ds.train_in_batch.shape[0] // batch_size)
+        epd = self._resolve_epd(steps_per_epoch, epochs)
+        # the blocks' device-side best chain (held lanes); best_* point at
+        # the last block the host has read
+        self._chain = None
+        pending = None
+        epoch = 0
+        while epoch < epochs:
+            if epd > 1 and epochs - epoch >= epd:
+                handles = self._dispatch_block(ds, batch_size, epoch, epd)
+                if pending is not None:
+                    self._process_block(pending)
+                pending = handles
+                epoch += epd
+                continue
+            if pending is not None:
+                self._process_block(pending)  # the tail reads best_* on the host
+                pending = None
             t0 = time.perf_counter()
-            train_np, skipped = self._epoch_train(ds, batch_size, epoch)
-            test_np = self._epoch_eval(ds, batch_size, epoch)
+            train_d, skipped_d = self._epoch_train(ds, batch_size, epoch)
+            test_d = self._epoch_eval(ds, batch_size, epoch)
+            train_np = train_d.cpu().numpy().astype(np.float64)
+            skipped, test_np = skipped_d.cpu().numpy(), test_d.cpu().numpy().astype(np.float64)
             train_np, skipped, test_np = (self._gather(a) for a in (train_np, skipped, test_np))
             if self._guard:
                 self._note_skipped(skipped)
             improved = train_np < self.best_loss
             if improved.any():
-                self._update_best(improved, train_np)
+                mask = torch.as_tensor(improved[self._lanes], device=self.device)
+                self.best_params, self.best_opt = self._select_best(
+                    mask, self.best_params, self.best_opt)
+                self.best_loss = np.where(improved, train_np, self.best_loss)
             self._log_epoch(epoch, train_np, test_np, time.perf_counter() - t0,
                             skipped if self._guard else None)
             if improved.any():
                 # best saved on every improvement, as Trainer does
                 self._save_best()
+            epoch += 1
+        if pending is not None:
+            self._process_block(pending)
         params = self._gather([t.detach() for t in self.params.tensors()])
         opt = self._gather(self.opt.state())
         if self._writer:
@@ -487,20 +517,75 @@ class MultiSeedTrainer:
         self.metrics.log(event="done", epochs=epochs, best_train=self.best_loss.tolist(),
                          **({"skipped_steps": self.skipped_steps} if self._guard else {}))
 
-    def _update_best(self, improved, train_np):
-        """Take the improved lanes' params, optimizer state and loss into
-        the best state."""
+    def _select_best(self, mask, best_params, best_opt):
+        """The best params and optimizer state with the lanes where
+        ``mask`` ([held lanes] bool, on the device) holds taken from the
+        live state."""
         params, opt = self._snapshot()
-        mask = torch.as_tensor(improved[self._lanes], device=self.device)
 
         def sel(best, new):
             return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, best)
 
-        self.best_params = [sel(b, n) for b, n in zip(self.best_params, params)]
-        self.best_opt = {k: sel(self.best_opt[k], v) if torch.is_tensor(v)
-                         else [sel(b, n) for b, n in zip(self.best_opt[k], v)]
-                         for k, v in opt.items()}
-        self.best_loss = np.where(improved, train_np, self.best_loss)
+        return ([sel(b, n) for b, n in zip(best_params, params)],
+                {k: sel(best_opt[k], v) if torch.is_tensor(v)
+                 else [sel(b, n) for b, n in zip(best_opt[k], v)] for k, v in opt.items()})
+
+    def _dispatch_block(self, ds, batch_size, start: int, k: int):
+        """Issue epochs [start, start + k) of every held lane without a
+        host sync, as the per-epoch schedule issues them, each lane's
+        best loss, params and optimizer state chained on the device
+        (:meth:`_select_best` under the lane's ``train < best``). Returns
+        the block's handles: the chain's tensors, and host copies of the
+        losses and best losses behind the block's last kernel with an
+        event to wait on."""
+        t0 = time.perf_counter()
+        if self._chain is None:
+            self._chain = (upload(self.best_loss[self._lanes], self.device),
+                           self.best_params, self.best_opt)
+        best_loss, best_params, best_opt = self._chain
+        best_in = best_loss
+        trl, tel, skl = [], [], []
+        for epoch in range(start, start + k):
+            train_loss, skipped = self._epoch_train(ds, batch_size, epoch)
+            tel.append(self._epoch_eval(ds, batch_size, epoch))
+            trl.append(train_loss)
+            skl.append(skipped)
+            train64 = train_loss.to(best_loss.dtype)
+            improved = train64 < best_loss
+            best_loss = torch.where(improved, train64, best_loss)
+            best_params, best_opt = self._select_best(improved, best_params, best_opt)
+        self._chain = (best_loss, best_params, best_opt)
+        host = {"train": host_copy(torch.stack(trl)), "test": host_copy(torch.stack(tel)),
+                "skipped": host_copy(torch.stack(skl)), "best_in": host_copy(best_in),
+                "best": host_copy(best_loss)}
+        return start, k, t0, host, ready_event(self.device), best_params, best_opt
+
+    def _process_block(self, handles):
+        """The host half of a block: wait for its copies alone, gather
+        the lanes of a mesh, point ``best_*`` at the block's best state,
+        log each epoch, and save the best checkpoint if any lane
+        improved."""
+        start, k, t0, host, event, best_params, best_opt = handles
+        if event is not None:
+            event.synchronize()
+
+        def lanes(key):  # [k, held lanes] -> [k, n_seeds]
+            return self._gather(host[key].numpy().T).T
+
+        train_k = lanes("train").astype(np.float64)
+        test_k = lanes("test").astype(np.float64)
+        skipped_k = lanes("skipped")
+        best_in = self._gather(host["best_in"].numpy())
+        best = self._gather(host["best"].numpy())
+        self.best_params, self.best_opt, self.best_loss = best_params, best_opt, best
+        dt = (time.perf_counter() - t0) / k
+        for j in range(k):
+            if self._guard:
+                self._note_skipped(skipped_k[j])
+            self._log_epoch(start + j, train_k[j], test_k[j], dt,
+                            skipped_k[j] if self._guard else None)
+        if (best < best_in).any():
+            self._save_best()
 
     def _note_skipped(self, skipped):
         total = int(skipped.sum())

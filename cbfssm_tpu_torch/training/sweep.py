@@ -144,12 +144,12 @@ class SweepTrainer(MultiSeedTrainer):
 
     ``mesh`` splits the grid's points over the mesh's ``seed_axis`` as
     ``MultiSeedTrainer`` splits its lanes; the grid's size must divide
-    by the axis.
+    by the axis. ``epochs_per_dispatch`` is ``MultiSeedTrainer``'s.
     """
 
     def __init__(self, model_cls, config, sweep: dict, model_dir, seed: int = 0,
                  vary_init: bool = False, mesh=None, seed_axis: str = "data",
-                 metrics_path=None, device="cuda"):
+                 metrics_path=None, device="cuda", epochs_per_dispatch=None):
         if not sweep:
             raise ValueError("sweep must name at least one field")
         allowed = frozenset(getattr(model_cls, "SWEEPABLE_HYPERS", SWEEPABLE)) | {"learning_rate"}
@@ -171,7 +171,8 @@ class SweepTrainer(MultiSeedTrainer):
         self._vary_init = vary_init
         model = SweptModel(model_cls, config, tuple(sweep), device=device)
         super().__init__(model, model_dir, n_seeds=lengths.pop(), seed=seed, mesh=mesh,
-                         seed_axis=seed_axis, metrics_path=metrics_path)
+                         seed_axis=seed_axis, metrics_path=metrics_path,
+                         epochs_per_dispatch=epochs_per_dispatch)
 
     def _stacked_init(self):
         if self._vary_init:

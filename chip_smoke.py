@@ -60,10 +60,13 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    bitwise and every gradient leaf against autodiff (float64 rtol 1e-7 /
    atol 1e-12, float32 rtol 2e-3 / atol 1e-5); its step time, peak
    memory, kernels and busy share beside pallas- and solve_free-autodiff.
-   Last, ``Trainer(profile_dir=)`` on a cut run (windows of 60 steps, 2
-   epochs of 2 steps and 1 test batch): one trace file holding the 2 x
-   119 ``gp_predict_residuals`` kernel events of epoch 1, and the losses
-   of the same run without it;
+   Then the Trainer's Adam update against ``torch.optim.Adam``'s step on
+   copies of the trained leaves: host ms and kernels of an update, and
+   the leaves within 1e-5 of their largest entry after 24 updates. Last,
+   ``Trainer(profile_dir=)`` on a cut run (windows of 60 steps, 2 epochs
+   of 2 steps and 1 test batch): one trace file holding the 2 x 119
+   ``gp_predict_residuals`` kernel events of epoch 1, and the losses of
+   the same run without it;
 6. the other models: CBFSSMHALF and PRSSM with the GRU recognition net
    ('rnn') at the same width (var_y of length dim_y = 2), float32,
    ``gp_impl='pallas'``. Each serves as in phase 4 (every chunk
@@ -187,20 +190,22 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    float64. Every tick launches ``gp_predict`` once, a forecast H times,
    a replay chunk as often as its padded length; ``filter_init`` none.
 11. deployment artifacts, at the RoboMove phase-0 width, float32,
-   ``gp_impl='pallas'``: (a) ``save_exported_predictor`` of phase 4's
-   CBFSSM (seed-0 init) at B 1, seq 300, its export, save and load
-   seconds; the program holds 399 ``cbfssm_torch::gp_predict`` nodes
-   (``cbfssm_predict_launches(300, 50)``), 5 calls at seeds 0-4 launch
-   5 x 399, and each reply equals ``CompiledPredictor``'s at the seed
+   ``gp_impl='pallas'``, its depth cut for time (``EXPORT_SEQ``,
+   ``EXPORT_H``, ``EXPORT_REPLAY``): (a) ``save_exported_predictor`` of
+   phase 4's CBFSSM (seed-0 init) at B 1, seq 120, its export, save and
+   load seconds; the program holds 219 ``cbfssm_torch::gp_predict`` nodes
+   (``cbfssm_predict_launches(120, 50)``), 5 calls at seeds 0-4 launch
+   5 x 219, and each reply equals ``CompiledPredictor``'s at the seed
    bitwise (else the largest difference is printed and held at rtol
    2e-5); request ms of both; (b) ``serve <artifact>`` in a subprocess
    (started while (a) loads): 2 requests, each equal to this process's
-   artifact at the dispatch seed, 2 x 399 launches; (c) ``python -m
+   artifact at the dispatch seed, 2 x 219 launches; (c) ``python -m
    cbfssm_tpu_torch export DIR --kind pool`` in a subprocess beside (a)
-   on a directory of phase 10's CBFSSMHALF (capacity 32, horizon 50,
-   replay bucket 64), loaded as an ``ExportedFilterPool``: 32
-   attaches, 64 ticks, a forecast and a ragged replay (64 + 50 + 64
-   launches, 1 per tick, H per forecast, the padded length per chunk),
+   on a directory of phase 10's CBFSSMHALF (capacity 32, horizon 10,
+   replay bucket 16), loaded as an ``ExportedFilterPool``: 32
+   attaches, 64 ticks, a forecast and a ragged replay of 1..16 steps
+   (64 + 10 + 16 launches, 1 per tick, H per forecast, the padded length
+   per chunk),
    every output equal to a live ``FilterPool``'s bitwise, failover live
    -> artifact and artifact -> live (3 ticks each, bitwise), and ``serve
    <artifact> --filter`` in a subprocess (an attach and a step, 1
@@ -224,6 +229,27 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    of one lane step (none). Per rank it prints the step ms and the
    gradient all-reduce ms. A rank that fails, dies or hangs fails the
    phase.
+13. last modules: (a) ``FilterPool(mesh=local_mesh(...))`` at phase
+   10's width (CBFSSMHALF 'rnn', float32, 'pallas', phase 6's params),
+   capacity 1,024 (N 51,200 rows a tick unsharded): 32 attached
+   sessions tiled to 1,024 load into the unsharded pool, whose state
+   loads into pools over ``local_mesh(["cuda:0"])``,
+   ``(["cuda:0"] * 2)`` and, with more than one card visible, every
+   card; each runs 8 ticks with one session held, a forecast of every
+   session at H 50 and a ragged replay of 1..64 steps, all outputs and
+   the state bitwise equal to the unsharded pool's, launches = blocks x
+   the unsharded pool's (8 + 50 + 64), no collective (``parallel.census``);
+   tick ms of each pool; (b) fused multi-epoch dispatch, phase 12's
+   cut windows in float32: 5 epochs of ``Trainer`` and 3 of a 2-lane
+   ``MultiSeedTrainer`` at ``epochs_per_dispatch`` 1 and 2 (after a
+   1-epoch warm-up run each), every block under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside a
+   block fails), losses and the best and last checkpoints (and the
+   stacked ones) bitwise equal, launches equal; epoch ms of each; (c)
+   the native host loader loads (it fails if ``native.available()`` is
+   false), its ``window_gather`` of the float64 RoboMove series equals
+   numpy's gather bitwise and ``unwrap_euler_angles`` through it equals
+   its Python loop bitwise; each pair timed.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
 four, phase 5's ``training_hand`` and ``trainer_profile``, phase 7's
@@ -239,7 +265,10 @@ phase 11's four (``export_predictor``, ``cli_serve_artifact``,
 ``export_pool`` and ``cli_serve_pool``, the two served ones counted by
 their subprocesses) and phase 12's four (``dp_nccl_1``; and per rank,
 held on both ranks and listed from rank 0, ``dp_gloo_2``,
-``particle_gloo_2`` and ``lanes_mesh_2``):
+``particle_gloo_2`` and ``lanes_mesh_2``) and phase 13's seven
+(``pool_unsharded``, ``pool_mesh_1``, ``pool_mesh_2``, and with more
+cards ``pool_mesh_<n>gpu``; ``train_epd1``, ``train_epd2``,
+``lanes_epd1``, ``lanes_epd2``):
 each sets the launch counts of all four kernels to 0 just before it
 (``reset_launches``) and reads all four just after (``launch_counts``),
 and the kernels line lists them by path (``launches_by_path``;
@@ -324,6 +353,9 @@ VOLIRO_POOL = 8  # (f)
 EXPORT_REQUESTS = 5  # phase 11 (a): artifact calls held against the live predictor
 FIT_BUCKETS, FIT_REPEATS = (1, 2, 4, 8, 16, 32), 15  # (d)
 OP_CALLS = 2000  # the op's host cost
+# phase 11's depth, cut for time from the served shapes (seq 300, H 50,
+# replay 64): tracing a program takes time in proportion to its steps
+EXPORT_SEQ, EXPORT_H, EXPORT_REPLAY = 120, 10, 16
 
 
 def fail(msg: str) -> None:
@@ -1085,7 +1117,71 @@ def phase_training(card: str):
     report_steps(f"CBFSSM gp_impl=solve_free B={BATCH} float32", plain, card,
                  stats=stats.setdefault("solve_free-autodiff", {}), via_trace=True)
     hand = hand_training(card, ds, make_model, plain, stats)
+    adam_update_cost(run[0], card)
     return counts, {"training_hand": hand, "trainer_profile": trainer_profile_dir(card)}
+
+
+def adam_update_cost(trainer, card: str, steps: int = 20) -> None:
+    """The Trainer's Adam update (``Trainer._adam_update``: ``adam_leaf``
+    a leaf, the step count on the device) against ``torch.optim.Adam``'s
+    own step (foreach, the count on the host) on copies of the trained
+    CBFSSM leaves with the same seeded gradients: host ms an update
+    (``steps`` updates, then one sync), device kernels of one update
+    under ``torch.profiler`` (which, after the script's earlier profiler
+    sessions, has seen none of a foreach launch's kernels), and the
+    largest difference of the leaves after the updates over each leaf's
+    largest entry (at most 1e-5)."""
+    import types
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbfssm_tpu_torch.training import Trainer
+
+    lr = float(trainer.model.config.learning_rate)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    base = [t.detach().clone() for t in trainer.params.tensors()]
+    grads = [[torch.randn(t.shape, generator=gen, dtype=t.dtype, device=DEVICE) for t in base]
+             for _ in range(steps + 4)]
+    leaves = {}
+    for name in ("port", "torch.optim.Adam"):
+        leaves[name] = [t.clone().requires_grad_(True) for t in base]
+    port = types.SimpleNamespace(optimizer=torch.optim.Adam(leaves["port"], lr=lr))
+    ref = torch.optim.Adam(leaves["torch.optim.Adam"], lr=lr)
+    updates = {"port": lambda: Trainer._adam_update(port, leaves["port"]),
+               "torch.optim.Adam": ref.step}
+    out = {}
+    for name, update in updates.items():
+        def step(i, name=name, update=update):
+            for p, g in zip(leaves[name], grads[i]):
+                p.grad = g
+            update()
+
+        for i in range(3):  # first calls: state and foreach set-up
+            step(i)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(3, 3 + steps):
+            step(i)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(3 + steps)
+            sync()
+        kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        out[name] = (ms, kernels)
+    diff = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(*(map(torch.Tensor.detach, leaves[k]) for k in updates)))
+    if not diff < 1e-5:
+        fail(f"adam update: the port's update left the leaves {diff:.3e} of their largest "
+             f"entry from torch.optim.Adam's after {steps + 4} updates")
+    print(f"adam update CBFSSM {trainer.model.dtype} ({len(base)} leaves): port {out['port'][0]:.3f} ms, "
+          f"{out['port'][1]} kernels, torch.optim.Adam (foreach) "
+          f"{out['torch.optim.Adam'][0]:.3f} ms, {out['torch.optim.Adam'][1]} kernels "
+          f"(host ms an update, mean of {steps}; kernels as torch.profiler saw them, which "
+          f"after this script's earlier sessions misses foreach launches); leaves after "
+          f"{steps + 4} updates within "
+          f"{diff:.3e} of the largest entry; {card}", flush=True)
 
 
 def recognition_parity(params):
@@ -3065,7 +3161,7 @@ def background_serve(args: list, log_dir: str, where: str, use):
 
 
 def export_predictor(card: str, tmp: str) -> dict:
-    """(a) + (b): the CBFSSM predictor at B 1, seq 300 exported from phase
+    """(a) + (b): the CBFSSM predictor at B 1, seq 120 exported from phase
     4's params (seed-0 init), the program saved again alone (its save
     seconds), ``serve <artifact>`` started in a subprocess (b), and the
     artifact loaded here through ``ExportedBatchPredictor`` meanwhile.
@@ -3089,13 +3185,13 @@ def export_predictor(card: str, tmp: str) -> dict:
 
     model = CBFSSM(config("float32", "pallas"), device=DEVICE)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
-    u_all, y_all = served_windows()
-    rule = cbfssm_predict_launches(SEQ_LEN, int(model.config.recog_len))
+    u_all, y_all = (a[:, :EXPORT_SEQ] for a in served_windows())
+    rule = cbfssm_predict_launches(EXPORT_SEQ, int(model.config.recog_len))
     path = os.path.join(tmp, "predictor")
     saves = []
     t0 = time.perf_counter()
     with timed_saves(saves):
-        meta = save_exported_predictor(path, model, params, 1, SEQ_LEN)
+        meta = save_exported_predictor(path, model, params, 1, EXPORT_SEQ)
     export_s = time.perf_counter() - t0
     program = os.path.join(path, "predictor.pt2")
 
@@ -3126,7 +3222,7 @@ def export_predictor(card: str, tmp: str) -> dict:
     outs = [timed_call(times["artifact"], pred, u1, y1, s) for s in range(EXPORT_REQUESTS)]
     counts = read_launches("export_predictor", EXPORT_REQUESTS * rule,
                            f"{EXPORT_REQUESTS} calls x {nodes} gp_predict nodes")
-    live = CompiledPredictor(model, params, 1, SEQ_LEN)
+    live = CompiledPredictor(model, params, 1, EXPORT_SEQ)
     live(u1, y1)
     refs = [timed_call(times["live"], live, u1, y1, s) for s in range(EXPORT_REQUESTS)]
     fields = meta["output_fields"]
@@ -3134,7 +3230,7 @@ def export_predictor(card: str, tmp: str) -> dict:
         for f in fields:
             if not bool(torch.isfinite(out[f]).all()):
                 fail(f"export_predictor: {f} is not finite")
-        if tuple(out["pred_mean"].shape) != (1, SEQ_LEN, 2):
+        if tuple(out["pred_mean"].shape) != (1, EXPORT_SEQ, 2):
             fail(f"export_predictor: pred_mean of shape {tuple(out['pred_mean'].shape)}")
     bitwise = all(torch.equal(o[f], getattr(r, f)) for o, r in zip(outs, refs) for f in fields)
     err = max(float((o[f] - getattr(r, f)).abs().max()) for o, r in zip(outs, refs)
@@ -3159,7 +3255,7 @@ def export_predictor(card: str, tmp: str) -> dict:
         fail(f"CLI serve <artifact>: replies differ from this process's artifact by {http_err:.3e}")
     if sub_counts != (2 * rule, 0, 0, 0):
         fail(f"CLI serve <artifact>: {COUNTERS} launches {sub_counts} != ({2 * rule}, 0, 0, 0)")
-    print(f"export_predictor: CBFSSM B=1 T={SEQ_LEN} float32 exported in "
+    print(f"export_predictor: CBFSSM B=1 T={EXPORT_SEQ} float32 exported in "
           f"{export_s - sum(saves):.2f} s and saved in {sum(saves):.2f} s "
           f"({os.path.getsize(program) / 1e6:.2f} MB), loaded on the card in {load_s:.2f} s; {nodes} gp_predict nodes = the rule {rule}; {EXPORT_REQUESTS} "
           f"calls launch {counts[0]}; replies vs CompiledPredictor at seeds 0-"
@@ -3179,8 +3275,8 @@ def export_predictor(card: str, tmp: str) -> dict:
 def start_pool_export(tmp: str, params):
     """(c), first half: phase 10's CBFSSMHALF 'rnn' model with ``params``
     written as a trained directory, and ``python -m cbfssm_tpu_torch
-    export DIR --kind pool --capacity 32 --horizons 50 --replay-buckets
-    64`` started on it in a subprocess (on the card), so the pool's trace
+    export DIR --kind pool --capacity 32 --horizons 10 --replay-buckets
+    16`` started on it in a subprocess (on the card), so the pool's trace
     runs beside the predictor's. Returns what :func:`export_pool`
     needs."""
     import os
@@ -3198,20 +3294,20 @@ def start_pool_export(tmp: str, params):
     log = open(os.path.join(tmp, "export_pool_log.txt"), "w+")
     proc = subprocess.Popen(
         [sys.executable, "-m", "cbfssm_tpu_torch", "export", half_dir, "--out", path,
-         "--kind", "pool", "--capacity", str(FLEET), "--horizons", str(FORECAST_H),
-         "--replay-buckets", str(FILTER_TICKS), *dev],
+         "--kind", "pool", "--capacity", str(FLEET), "--horizons", str(EXPORT_H),
+         "--replay-buckets", str(EXPORT_REPLAY), *dev],
         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True)
     return model, params, path, proc, log, time.perf_counter()
 
 
 def export_pool(card: str, tmp: str, started) -> dict:
     """(c): the pool artifact that :func:`start_pool_export`'s CLI
-    subprocess writes (capacity 32, horizon 50, replay bucket 64, phase
+    subprocess writes (capacity 32, horizon 10, replay bucket 16, phase
     10's CBFSSMHALF params); ``serve <artifact> --filter`` started in a
     subprocess while this process loads the artifact as an
     ``ExportedFilterPool``. Counted: 32 attaches, 64 ticks,
-    a 50-step forecast and a ragged replay (lengths uniform in [1, 64],
-    one padded chunk): 64 + 50 + 64 launches. Then a live ``FilterPool``
+    a 10-step forecast and a ragged replay (lengths uniform in [1, 16],
+    one padded chunk): 64 + 10 + 16 launches. Then a live ``FilterPool``
     runs the same and must equal it bitwise, and failover runs both ways
     (live -> artifact, artifact -> a seed-7 live standby), 3 ticks each,
     bitwise. The served pool answers an attach and a step, equal to a
@@ -3257,12 +3353,12 @@ def export_pool(card: str, tmp: str, started) -> dict:
     epool = ExportedFilterPool(path, device=DEVICE)
     load_s = time.perf_counter() - t0
     nodes = {k: gp_predict_nodes(p) for k, p in epool.model.programs().items()}
-    want_nodes = {"init": 0, "step": 1, f"forecast_{FORECAST_H}": FORECAST_H,
-                  f"replay_{FILTER_TICKS}": FILTER_TICKS}
+    want_nodes = {"init": 0, "step": 1, f"forecast_{EXPORT_H}": EXPORT_H,
+                  f"replay_{EXPORT_REPLAY}": EXPORT_REPLAY}
     if nodes != want_nodes:
         fail(f"export_pool: gp_predict nodes {nodes} != {want_nodes}")
-    lengths = np.random.default_rng(0).integers(1, FILTER_TICKS + 1, size=n)
-    t_fc, t_rep = r + FILTER_TICKS, r + FILTER_TICKS + FORECAST_H
+    lengths = np.random.default_rng(0).integers(1, EXPORT_REPLAY + 1, size=n)
+    t_fc, t_rep = r + FILTER_TICKS, r + FILTER_TICKS + EXPORT_H
 
     def scenario(pool, times):
         sids = [pool.attach(u_all[i, :r], y_all[i, :r]) for i in range(n)]
@@ -3270,7 +3366,7 @@ def export_pool(card: str, tmp: str, started) -> dict:
                             {s: (u_all[i, r - 1 + k], y_all[i, r + k]) for i, s in enumerate(sids)})
                  for k in range(FILTER_TICKS)]
         fc = timed_call(times["forecast"], pool.forecast,
-                        {s: u_all[i, t_fc:t_fc + FORECAST_H] for i, s in enumerate(sids)})
+                        {s: u_all[i, t_fc:t_fc + EXPORT_H] for i, s in enumerate(sids)})
         rep = timed_call(times["replay"], pool.replay,
                          {s: (u_all[i, t_rep - 1:t_rep - 1 + lengths[i]],
                               y_all[i, t_rep:t_rep + lengths[i]]) for i, s in enumerate(sids)})
@@ -3290,10 +3386,10 @@ def export_pool(card: str, tmp: str, started) -> dict:
     t0 = time.perf_counter()
     got = scenario(epool, times["artifact"])
     run_s = time.perf_counter() - t0
-    counts = read_launches("export_pool", 2 * FILTER_TICKS + FORECAST_H,
-                           f"{FILTER_TICKS} ticks + forecast H {FORECAST_H} + one replay chunk "
-                           f"of {FILTER_TICKS}")
-    live = FilterPool(model, params, capacity=n, replay_buckets=(FILTER_TICKS,))
+    counts = read_launches("export_pool", FILTER_TICKS + EXPORT_H + EXPORT_REPLAY,
+                           f"{FILTER_TICKS} ticks + forecast H {EXPORT_H} + one replay chunk "
+                           f"of {EXPORT_REPLAY}")
+    live = FilterPool(model, params, capacity=n, replay_buckets=(EXPORT_REPLAY,))
     want = scenario(live, times["live"])
     sids = got[0]
     if got[0] != want[0]:
@@ -3310,11 +3406,11 @@ def export_pool(card: str, tmp: str, started) -> dict:
         fail("export_pool: the artifact pool's state differs from the live pool's")
     # failover: live -> artifact (after the live pool moved on alone) and
     # artifact -> a live standby of another seed
-    k0 = FILTER_TICKS + FORECAST_H + FILTER_TICKS + 1
+    k0 = FILTER_TICKS + EXPORT_H + EXPORT_REPLAY + 1
     live.step({s: (u_all[i, r - 1 + k0], y_all[i, r + k0]) for i, s in enumerate(sids)})
     epool.load_state(live.state)
     to_artifact = tail_ticks(live, epool, sids, k0 + 1)
-    standby = FilterPool(model, params, capacity=n, seed=7, replay_buckets=(FILTER_TICKS,))
+    standby = FilterPool(model, params, capacity=n, seed=7, replay_buckets=(EXPORT_REPLAY,))
     standby.load_state(epool.state)
     to_live = tail_ticks(epool, standby, sids, k0 + 4)
     if not (to_artifact and to_live):
@@ -3340,7 +3436,7 @@ def export_pool(card: str, tmp: str, started) -> dict:
         fail(f"CLI serve --filter <artifact>: {COUNTERS} launches {sub_counts} != (1, 0, 0, 0)")
     med = {w: {k: statistics.median(v) for k, v in t.items()} for w, t in times.items()}
     print(f"export_pool: `python -m cbfssm_tpu_torch export --kind pool` of the CBFSSMHALF "
-          f"directory (capacity {n}, horizon {FORECAST_H}, replay bucket {FILTER_TICKS}) wrote "
+          f"directory (capacity {n}, horizon {EXPORT_H}, replay bucket {EXPORT_REPLAY}) wrote "
           f"the artifact in {export_s:.2f} s of wall time (a subprocess, beside the "
           f"predictor's export), loaded here on the card in {load_s:.2f} s; gp_predict nodes {nodes}; {n} attaches, {FILTER_TICKS} ticks, "
           f"forecast, ragged replay (lengths {int(lengths.min())}-{int(lengths.max())}) in "
@@ -3846,6 +3942,329 @@ def phase_mesh(card: str):
             "lanes_mesh_2": ranks[0]["lanes"]["counts"]}
 
 
+MESH_POOL, MESH_TICKS, MESH_HELD = 1024, 8, 7  # phase 13 (a): capacity, ticks, held slot
+MESH_REPLAY_MAX = 64  # the longest backlog of its ragged replay (one chunk of the (16, 64) ladder)
+EPD_EPOCHS, EPD_LANE_EPOCHS = 5, 3  # (b): epochs at epd 1 and 2 (two blocks + a tail)
+
+
+def pool_scenario_mesh(pool, ticks, fc_inputs, backlog):
+    """(a)'s history on one pool: ``MESH_TICKS`` ticks, a forecast, a
+    ragged replay, all under the collective census. Returns the outputs
+    with the state, the tick ms, the launch counts and the census
+    records."""
+    from cbfssm_tpu_torch.parallel import census
+
+    reset_launches()
+    outs, tick_ms = {"ticks": []}, []
+    with census.record() as items:
+        for inputs in ticks:
+            t0 = time.perf_counter()
+            outs["ticks"].append(pool.step(inputs))
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+        outs["forecast"] = pool.forecast(fc_inputs)
+        outs["replay"] = pool.replay(backlog)
+    counts = launch_counts()
+    outs["state"] = pool.state
+    return outs, tick_ms, counts, items
+
+
+def same_outputs(got: dict, want: dict) -> bool:
+    """Every tick, forecast and replay output and the state bitwise."""
+    import numpy as np
+
+    for g, w in zip(got["ticks"], want["ticks"], strict=True):
+        if set(g) != set(w) or not all(same_pair(g[s], w[s]) for s in w):
+            return False
+    for op in ("forecast", "replay"):
+        if set(got[op]) != set(want[op]) or not all(same_pair(got[op][s], want[op][s])
+                                                    for s in want[op]):
+            return False
+    gx, gt, gslots, gnext, gkey = got["state"]
+    wx, wt, wslots, wnext, wkey = want["state"]
+    return (np.array_equal(gx, wx) and (gt, gslots, gnext) == (wt, wslots, wnext)
+            and np.array_equal(gkey, wkey))
+
+
+def pool_mesh(card: str, params=None) -> dict:
+    """(a) ``FilterPool(mesh=local_mesh(...))`` at the fleet's width
+    (CBFSSMHALF 'rnn', RoboMove phase 0, float32, 'pallas', capacity
+    1,024: N = 51,200 rows a tick unsharded): 32 attached sessions tiled
+    to 1,024 load into the unsharded pool, whose state loads into pools
+    over ``local_mesh(["cuda:0"])``, ``(["cuda:0"] * 2)`` and every
+    visible card; each runs 8 ticks with one session held, a forecast of
+    all sessions at H 50 and a ragged replay of 1..64 steps, bitwise
+    equal to the unsharded pool, with blocks x its launches and no
+    collective. Returns the paths' launch counts."""
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch.models import CBFSSMHALF
+    from cbfssm_tpu_torch.parallel import local_mesh
+    from cbfssm_tpu_torch.serving import FilterPool
+
+    model = rnn_model(CBFSSMHALF, "float32", "pallas")
+    if params is None:
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    u_all, y_all = served_windows()
+    n, r = len(u_all), int(model.config.recog_len)
+    seed_pool = FilterPool(model, params, capacity=FLEET)
+    for i in range(FLEET):
+        seed_pool.attach(u_all[i % n, :r], y_all[i % n, :r])
+    x32, tick, _, _, key = seed_pool.state
+    snapshot = (np.tile(x32, (MESH_POOL // FLEET, 1, 1)), tick,
+                {i: i for i in range(MESH_POOL)}, MESH_POOL, key)
+    ticks = [{i: (u_all[i % n, r - 1 + k], y_all[i % n, r + k]) for i in range(MESH_POOL)
+              if i != MESH_HELD} for k in range(MESH_TICKS)]
+    fc_inputs = {i: u_all[i % n, r + 20:r + 20 + FORECAST_H] for i in range(MESH_POOL)}
+    backlog = {i: (u_all[i % n, r + 20:r + 20 + k], y_all[i % n, r + 21:r + 21 + k])
+               for i, k in ((i, 1 + (37 * i // 2) % MESH_REPLAY_MAX)
+                            for i in range(0, MESH_POOL, 2))}
+    if max(len(u) for u, _ in backlog.values()) != MESH_REPLAY_MAX:
+        fail("pool_mesh: the ragged backlog does not reach its longest length")
+    card0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    meshes = {"pool_unsharded": None, "pool_mesh_1": local_mesh([card0]),
+              "pool_mesh_2": local_mesh([card0, card0])}
+    if DEVICE == "cuda" and torch.cuda.device_count() > 1:
+        meshes[f"pool_mesh_{torch.cuda.device_count()}gpu"] = local_mesh(
+            [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    per_pool = MESH_TICKS + FORECAST_H + MESH_REPLAY_MAX  # launches of the unsharded pool
+    paths, want, lines = {}, None, []
+    unsharded = FilterPool(model, params, capacity=MESH_POOL, replay_buckets=REPLAY_BUCKETS)
+    unsharded.load_state(snapshot)
+    state = unsharded.state
+    for name, mesh in meshes.items():
+        t0 = time.perf_counter()
+        if mesh is None:
+            pool = unsharded
+        else:  # cross-topology failover: the unsharded pool's state into the meshed one
+            pool = FilterPool(model, params, capacity=MESH_POOL, mesh=mesh,
+                              replay_buckets=REPLAY_BUCKETS)
+            pool.load_state(state)
+        outs, tick_ms, counts, items = pool_scenario_mesh(pool, ticks, fc_inputs, backlog)
+        blocks = 1 if mesh is None else mesh.size
+        rule = (f"{blocks} block(s) x ({MESH_TICKS} ticks + {FORECAST_H} forecast steps + "
+                f"{MESH_REPLAY_MAX} replay steps)")
+        if counts != (blocks * per_pool, 0, 0, 0):
+            fail(f"{name}: {COUNTERS} launches {counts} != {(blocks * per_pool, 0, 0, 0)} = "
+                 f"{rule}")
+        if items:
+            fail(f"{name}: the pool performed collectives: {items}")
+        for k, out in enumerate(outs["ticks"]):
+            mean = np.stack([out[s][0] for s in sorted(out)])
+            var = np.stack([out[s][1] for s in sorted(out)])
+            check_moments(f"{name} tick {k}", mean, var, (MESH_POOL - 1, 2))
+        if want is None:
+            want = outs
+        elif not same_outputs(outs, want):
+            fail(f"{name}: outputs or state differ from the unsharded pool's (bitwise)")
+        paths[name] = counts
+        lines.append(f"pool_mesh {name}: {blocks} block(s) of {MESH_POOL // blocks} sessions "
+                     f"({MESH_POOL // blocks * model.samples} rows); tick ms "
+                     f"{fmt_times(tick_ms)}; launches {counts}; no collective; "
+                     f"{time.perf_counter() - t0:.2f} s; {card}")
+    for line in lines:
+        print(line, flush=True)
+    print(f"pool_mesh: {len(meshes) - 1} meshed pools loaded from the unsharded pool's state, "
+          f"{MESH_TICKS} ticks (slot {MESH_HELD} held), a forecast at H {FORECAST_H} and a "
+          f"ragged replay of 1..{MESH_REPLAY_MAX} steps bitwise equal to it", flush=True)
+    return paths
+
+
+@contextlib.contextmanager
+def strict_blocks(cls):
+    """``torch.cuda.set_sync_debug_mode('error')`` while ``cls``'s
+    ``_dispatch_block`` runs: a host sync inside a block raises."""
+    import torch
+
+    dispatch = cls._dispatch_block
+    issued = []
+
+    def strict(self, *args):
+        if DEVICE != "cuda":
+            issued.append(args)
+            return dispatch(self, *args)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        issued.append(args)
+        return out
+
+    cls._dispatch_block = strict
+    try:
+        yield issued
+    finally:
+        cls._dispatch_block = dispatch
+
+
+def same_checkpoints(dir_a: str, dir_b: str, names) -> bool:
+    import os
+
+    import torch
+
+    from cbfssm_tpu_torch.training import checkpoint
+
+    for name in names:
+        a, b = os.path.join(dir_a, name), os.path.join(dir_b, name)
+        if os.path.exists(a) != os.path.exists(b):
+            return False
+        if os.path.exists(a):
+            fa, sa = torch.utils._pytree.tree_flatten(checkpoint.restore(a))
+            fb, sb = torch.utils._pytree.tree_flatten(checkpoint.restore(b))
+            if sa != sb or not all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                                   for x, y in zip(fa, fb)):
+                return False
+    return True
+
+
+def blocked_training(card: str) -> dict:
+    """(b) Fused multi-epoch dispatch: CBFSSM float32 'pallas' at the
+    RoboMove width on phase 12's cut windows (2 Adam steps of 32, 1 test
+    batch an epoch), 5 epochs at ``epochs_per_dispatch`` 1 and 2 (two
+    blocks and a tail), then a 2-lane ``MultiSeedTrainer`` for 3 epochs at
+    1 and 2; every block under ``set_sync_debug_mode('error')``. Losses,
+    best and last checkpoints bitwise equal, launches equal. Returns the
+    four paths' counts."""
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.training import MultiSeedTrainer, Trainer, checkpoint
+    from cbfssm_tpu_torch.training import multiseed
+
+    ds = _Windows(**mesh_arrays(robomove(), MESH_TRAIN))
+    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
+    steps = MESH_TRAIN // BATCH
+    runs, paths = {}, {}
+
+    def trainer(cls, path, epd):
+        if cls is Trainer:
+            return Trainer(model, path, seed=0, epochs_per_dispatch=epd)
+        return MultiSeedTrainer(model, path, n_seeds=2, seed=0, epochs_per_dispatch=epd)
+
+    with tempfile_dir() as tmp:
+        for kind, cls, epochs in (("train", Trainer, EPD_EPOCHS),
+                                  ("lanes", MultiSeedTrainer, EPD_LANE_EPOCHS)):
+            # a 1-epoch run first, so that neither timed run pays the
+            # path's first-call costs
+            trainer(cls, f"{tmp}/{kind}_warm", 1).train(ds, epochs=1)
+            for epd in (1, 2):
+                path = f"{tmp}/{kind}_epd{epd}"
+                tr = trainer(cls, path, epd)
+                reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    with strict_blocks(cls) as issued:
+                        tr.train(ds, epochs=epochs)
+                except RuntimeError as exc:  # the sync debug mode's error
+                    fail(f"{kind}_epd{epd}: a host sync inside a block: {exc}")
+                run_s = time.perf_counter() - t0
+                name = f"{kind}_epd{epd}"
+                paths[name] = launch_counts()
+                want_blocks = (epochs // 2) if epd == 2 else 0
+                if len(issued) != want_blocks:
+                    fail(f"{name}: {len(issued)} blocks issued, want {want_blocks}")
+                runs[name] = (tr, path, run_s)
+            (a, dir_a, s_a), (b, dir_b, s_b) = runs[f"{kind}_epd1"], runs[f"{kind}_epd2"]
+            names = (checkpoint.BEST, checkpoint.LAST) + (
+                (multiseed.BEST_SEEDS, multiseed.LAST_SEEDS) if cls is MultiSeedTrainer else ())
+            if kind == "train":
+                same = a.train_all == b.train_all and a.test_all == b.test_all
+                per = (STEPS_PER_CHUNK, steps * STEPS_PER_CHUNK, 0, 0)
+            else:
+                import numpy as np
+
+                same = (np.array_equal(np.stack(a.train_all), np.stack(b.train_all))
+                        and np.array_equal(np.stack(a.test_all), np.stack(b.test_all)))
+                per = (0, 0, STEPS_PER_CHUNK, steps * STEPS_PER_CHUNK)
+            if not same:
+                fail(f"{kind}: losses at epd 2 {b.train_all} / {b.test_all} != epd 1 "
+                     f"{a.train_all} / {a.test_all}")
+            if not same_checkpoints(dir_a, dir_b, names):
+                fail(f"{kind}: the checkpoints at epd 2 differ from epd 1's")
+            want = tuple(epochs * c for c in per)
+            for epd in (1, 2):
+                if paths[f"{kind}_epd{epd}"] != want:
+                    fail(f"{kind}_epd{epd}: {COUNTERS} launches {paths[f'{kind}_epd{epd}']} != "
+                         f"{want} = {epochs} epochs x ({steps} steps x {STEPS_PER_CHUNK} "
+                         f"residual, 1 test batch x {STEPS_PER_CHUNK})")
+            print(f"blocked {kind}: {epochs} epochs of {steps} Adam steps + 1 test batch "
+                  f"(float32, {'1 model' if kind == 'train' else '2 lanes'}): epd 2 ({epochs // 2}"
+                  f" block(s) + tail, no host sync inside a block) bitwise equal to epd 1 in "
+                  f"losses and {', '.join(names)}; epoch ms (after a warm-up run) epd 1 "
+                  f"{1e3 * s_a / epochs:.1f}, epd 2 {1e3 * s_b / epochs:.1f}; launches "
+                  f"{paths[f'{kind}_epd2']} each; "
+                  f"{card}", flush=True)
+    return paths
+
+
+def native_loader(card: str) -> None:
+    """(c) The native host loader: the library loads on the card's host,
+    ``window_gather`` on the float64 RoboMove series equals the numpy
+    gather bitwise, and ``unwrap_euler_angles`` through it equals its
+    Python loop bitwise; each pair timed."""
+    import numpy as np
+
+    from cbfssm_tpu_torch import native
+    from cbfssm_tpu_torch.data import RoboMove, voliro_loader
+
+    if not native.available():
+        fail(f"native: the host loader did not build or load ({native.library_path()})")
+    ds = RoboMove(SEQ_LEN, SEQ_STRIDE)
+    x = np.ascontiguousarray(ds.train_in, dtype=np.float64)
+    starts = np.arange(0, x.shape[1] - SEQ_LEN + 1, SEQ_STRIDE)
+    if (x.shape[1] - SEQ_LEN) % SEQ_STRIDE:
+        starts = np.append(starts, x.shape[1] - SEQ_LEN)
+    times = {}
+    for name, fn in (("native", lambda: native.window_gather(x, starts, SEQ_LEN)),
+                     ("numpy", lambda: x[:, starts[:, None] + np.arange(SEQ_LEN)[None, :], :]
+                      .reshape(-1, SEQ_LEN, x.shape[2]))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            out = fn()
+        times[name] = (1e3 * (time.perf_counter() - t0) / 20, out)
+    if not np.array_equal(times["native"][1], times["numpy"][1]):
+        fail("native: window_gather differs from the numpy gather")
+    if not np.array_equal(times["native"][1], ds.train_in_batch):
+        fail("native: window_gather differs from the dataset's windows")
+    print(f"native: {native.library_path().name} loaded; window_gather of the RoboMove train "
+          f"series {x.shape} into {times['native'][1].shape} windows bitwise equal to numpy; "
+          f"host ms native {times['native'][0]:.3f}, numpy {times['numpy'][0]:.3f} (mean of 20)",
+          flush=True)
+    # unwrap_euler_angles: the library against its Python loop (the
+    # fallback), on a seeded wrapped random walk of 20,000 x 3 angles
+    rng = np.random.default_rng(0)
+    vec = np.cumsum(rng.normal(0.0, 0.3, (20000, 3)), axis=0)
+    vec = (vec + np.pi) % (2 * np.pi) - np.pi
+    loop_fn = native.unwrap_angles
+    for name in ("native", "loop"):
+        native.unwrap_angles = loop_fn if name == "native" else (lambda *args: None)
+        try:
+            voliro_loader.unwrap_euler_angles(vec)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                out = voliro_loader.unwrap_euler_angles(vec)
+            times[name] = (1e3 * (time.perf_counter() - t0) / 5, out)
+        finally:
+            native.unwrap_angles = loop_fn
+    if not np.array_equal(times["native"][1], times["loop"][1]):
+        fail("native: unwrap_angles differs from the Python loop")
+    print(f"native: unwrap_euler_angles of {vec.shape} angles bitwise equal to its Python loop; "
+          f"host ms native {times['native'][0]:.3f}, loop {times['loop'][0]:.3f} (mean of 5)",
+          flush=True)
+
+
+def phase_last_modules(card: str, half_params=None) -> dict:
+    """Phase 13: the meshed pool (a), fused multi-epoch dispatch (b) and
+    the native host loader (c). Returns the launches by path."""
+    t0 = time.perf_counter()
+    paths = pool_mesh(card, half_params)
+    paths.update(blocked_training(card))
+    native_loader(card)
+    print(f"last modules: launches by path {paths}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return paths
+
+
 def main() -> None:
     if not (ROOT / "cbfssm_tpu_torch" / "__init__.py").is_file():
         fail("cbfssm_tpu_torch/ is not beside chip_smoke.py; run from the repository")
@@ -3874,12 +4293,14 @@ def main() -> None:
                                          half_params)
     export_paths, cost_fit, op_host_us = timed("11 export", phase_export, card, half_params)
     mesh_paths = timed("12 process groups", phase_mesh, card)
+    last_paths = timed("13 last modules", phase_last_modules, card, half_params)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")
     # the four launch counts (COUNTERS) of every main path, as measured
     paths = {"serving": serving, "training": training, **training_paths, **other, **new_paths,
-             **lane_paths, **cli_paths, **filter_paths, **export_paths, **mesh_paths}
+             **lane_paths, **cli_paths, **filter_paths, **export_paths, **mesh_paths,
+             **last_paths}
     n, m, di, d = SHAPES["recognition N=12800 M=100 DI=6 D=2"]
     n2, m2, di2, d2 = SHAPES["forward N=1600 M=100 DI=6 D=4"]
     kernels = []

@@ -182,7 +182,7 @@ def test_init_shapes_and_var_dict():
     ({"adjoint": "hand", "gp_impl": "pallas"}, "requires gp_impl='solve_free'"),
     ({"adjoint": "parallel"}, "does not implement"),
     ({"adjoint": "sideways"}, "adjoint must be"),
-    ({"epochs_per_dispatch": 4}, "epochs_per_dispatch"),
+    ({"epochs_per_dispatch": "fast"}, "epochs_per_dispatch"),
     ({"backward_mode": "Blocked"}, "backward_mode"),
     ({"gp_matmul_precision": "default"}, "not ported"),
     ({"scan_unroll": 0}, "scan_unroll"),

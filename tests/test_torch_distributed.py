@@ -283,7 +283,7 @@ def trainer_run(tmp_path_factory):
     ref = jax_trainer_reference(tmp)
     spec = {"ds": smoke_arrays(), "config": smoke_config(), "dir": str(tmp / "port"),
             "seed": ref["seed"], "init": ref["init"], "noises": ref["noises"],
-            "half": half_case()}
+            "half": half_case(), "blocked": True}
     return ref, run_ranks(workers.trainer_ranks, 2, spec, tmp)
 
 
@@ -372,6 +372,26 @@ def test_nan_in_one_ranks_rows_skips_the_update_on_every_rank(trainer_run):
     for out in ranks:
         applied, unchanged, adam_steps = out["guard"]
         assert not applied and unchanged and adam_steps == 0
+
+
+def test_blocked_trainer_on_mesh_equals_per_epoch(trainer_run):
+    """Trainer(mesh=, epochs_per_dispatch=2) over 5 epochs (two blocks
+    and a tail; tests/test_trainer.py:365 for the port): bitwise the
+    meshed per-epoch run, with the same collectives (the gradient
+    all-reduce once a step inside the blocks too), and the unmeshed
+    blocked run at rtol 1e-10."""
+    _, ranks = trainer_run
+    flat = ranks[0]["blocked"]["flat_epd2"]
+    for out in ranks:
+        per_epoch, blocked = out["blocked"]["mesh_epd1"], out["blocked"]["mesh_epd2"]
+        assert blocked[:2] == per_epoch[:2]
+        for a, b in zip(blocked[2], per_epoch[2]):
+            assert np.array_equal(a, b)
+        assert blocked[3] == per_epoch[3] and blocked[3]["all-reduce"] > 0
+        np.testing.assert_allclose(blocked[0], flat[0], rtol=RTOL_MESH)
+        np.testing.assert_allclose(blocked[1], flat[1], rtol=RTOL_MESH)
+        assert_leaves_close(blocked[2], flat[2], rtol=RTOL_MESH)
+    assert flat[3] == {}
 
 
 def test_restore_then_train_on_mesh_matches_unmeshed(trainer_run):

@@ -51,7 +51,8 @@ import cbfssm_tpu_torch.predict_output, cbfssm_tpu_torch.models.adjoint
 import cbfssm_tpu_torch.ops.gp_adjoint, cbfssm_tpu_torch.ops.parallel_vjp
 import cbfssm_tpu_torch.parallel, cbfssm_tpu_torch.parallel.distributed
 import cbfssm_tpu_torch.parallel.sharding, cbfssm_tpu_torch.parallel.particle
-import cbfssm_tpu_torch.parallel.census
+import cbfssm_tpu_torch.parallel.census, cbfssm_tpu_torch.parallel.local
+import cbfssm_tpu_torch.native, cbfssm_tpu_torch.utils.transfer
 import chip_smoke
 """ + NOT_LOADED
 

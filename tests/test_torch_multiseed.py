@@ -160,8 +160,11 @@ def test_multiseed_retrain_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,match", [({"mesh": object()}, "A6.1"),
-                                          ({"epochs_per_dispatch": 2}, "A4.1")])
+                                          ({"epochs_per_dispatch": "fast"}, "A4.1")])
 def test_rejects_what_is_not_ported(tmp_path, kwargs, match):
+    """A mesh that is not a DeviceMesh, and an epochs_per_dispatch that
+    is neither 'auto' nor an integer (fused dispatch itself is ported:
+    tests/test_torch_blocked_epochs.py)."""
     with pytest.raises(ValueError, match=match):
         MultiSeedTrainer(port_model(), str(tmp_path), n_seeds=2, **kwargs)
 

@@ -107,6 +107,21 @@ def test_jittered_cholesky_and_inverse(rng, batch):
     close(linalg.log_det_from_chol(chol), jlinalg.log_det_from_chol(jchol))
 
 
+def test_jittered_cholesky_not_positive_definite_is_nan_like_jax(rng):
+    """A factor that does not exist is NaN on and below the diagonal, as
+    ``jnp.linalg.cholesky`` gives, and only in that batch member (no
+    exception: reading the factorization's status back would be a host
+    sync on the card)."""
+    bad = np.asarray([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    k = np.stack([bad, spd(rng, 3)])
+    chol = linalg.jittered_cholesky(t(k), 1e-8).numpy()
+    jchol = np.asarray(jlinalg.jittered_cholesky(jnp.asarray(k), 1e-8))
+    np.testing.assert_array_equal(np.isnan(chol), np.isnan(jchol))
+    assert np.isnan(chol[0][np.tril_indices(3)]).all() and not np.isnan(chol[1]).any()
+    np.testing.assert_array_equal(chol[0][np.triu_indices(3, 1)], jchol[0][np.triu_indices(3, 1)])
+    close(chol[1], jchol[1], atol=1e-14)
+
+
 @pytest.mark.parametrize("rhs", [(9, 3), (9, 1)])
 def test_cho_solve_matches(rng, rhs):
     """tests/test_linalg.py::test_cho_solve's case: K x = b solved from the

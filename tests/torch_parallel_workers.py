@@ -145,8 +145,10 @@ def _params(name: str, tree, device):
 def trainer_ranks(rank, world, spec):
     """The meshed Trainer: 2 epochs fed the JAX trainer's draws; one
     step's loss and gradient beside the unmeshed step's; the census of
-    that step; the guard on a NaN row of rank 1; restore-then-train
-    against the unmeshed resume; process_rows / host_local_batch."""
+    that step; the guard on a NaN row of rank 1; 5 epochs at
+    epochs_per_dispatch 1 and 2 on the mesh and 2 unmeshed, with their
+    censuses; restore-then-train against the unmeshed resume;
+    process_rows / host_local_batch."""
     from cbfssm_tpu_torch.convert import cbfssm_params_to_numpy
     from cbfssm_tpu_torch.models import CBFSSM
     from cbfssm_tpu_torch.parallel import DataParallel, census, distributed, make_mesh
@@ -184,7 +186,7 @@ def trainer_ranks(rank, world, spec):
             t = Trainer(CBFSSM(cfg, device=device), tmp, seed=1, mesh=m, init_params=init)
             t.init_state()
             loss, applied = t.train_step(u, y, w, None, noise)
-            steps[name] = (float(loss), applied, _grads(t.params), _leaves(t.params))
+            steps[name] = (float(loss), bool(applied), _grads(t.params), _leaves(t.params))
             if m is not None:
                 with census.record() as items:
                     t.train_step(u, y, w, None, noise)
@@ -200,8 +202,8 @@ def trainer_ranks(rank, world, spec):
             bad = u.clone()
             bad[b - 1, 0, 0] = float("nan")  # a row of the last rank's block
             _, applied = t.train_step(bad, y, w, None, noise)
-            out["guard"] = (applied, all(np.array_equal(a, c)
-                                         for a, c in zip(before, _leaves(t.params))),
+            out["guard"] = (bool(applied), all(np.array_equal(a, c)
+                                               for a, c in zip(before, _leaves(t.params))),
                             int(t.optimizer.state_dict()["state"].get(0, {}).get("step", 0)))
 
     if spec.get("half"):  # a model whose draws are one [T-1, B, S, 1] tensor
@@ -216,6 +218,21 @@ def trainer_ranks(rank, world, spec):
                 t.init_state()
                 loss, _ = t.train_step(hu, hy, torch.ones(hu.shape[0], **kw), None, hn)
                 out["half"][name] = (float(loss), _grads(t.params))
+
+    if spec.get("blocked"):  # Trainer(mesh=, epochs_per_dispatch=) over 5 epochs
+        blocked = {}
+        for name, epd, m in (("mesh_epd1", 1, mesh), ("mesh_epd2", 2, mesh),
+                             ("flat_epd2", 2, None)):
+            if m is None and rank != 0:
+                continue
+            with tempfile.TemporaryDirectory() as tmp:
+                t = Trainer(CBFSSM(cfg, device=device), tmp, seed=4, mesh=m,
+                            epochs_per_dispatch=epd)
+                with census.record() as items:
+                    t.train(ds, epochs=5)
+                blocked[name] = (t.train_all, t.test_all, _leaves(t.params),
+                                 census.census(items))
+        out["blocked"] = blocked
 
     if noises:  # restore the 2-epoch run's last checkpoint, then one epoch
         resumed = {}
