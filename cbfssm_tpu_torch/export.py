@@ -39,6 +39,11 @@ Design:
   load (``torch.export.passes.move_to_device_pass``). ``platforms``
   (``cpu``, ``cuda``) lists the devices it may be loaded on. The
   loaders run on the card unless the caller passes ``device="cpu"``.
+- On the card a predictor is compiled at load (:func:`_compile_program`,
+  ``torch.compile`` with the persistent compile cache of
+  :mod:`cbfssm_tpu_torch.utils.compile_cache`), as the JAX package jits
+  its deserialized call. The filter programs stay uncompiled: they are
+  held bitwise to the live, eager filters, in lockstep and in failover.
 
 The meta keys are the JAX package's, with ``torch_version`` in place of
 ``jax_version``, ``platforms`` among cpu / cuda, ``noise_shapes`` added
@@ -184,8 +189,44 @@ def _load_program(path, name, device):
     callable module."""
     from torch.export.passes import move_to_device_pass
 
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # the pass writes the device into the graph's device arguments: with
+        # its index, as the tensors report it, or a compile's metadata
+        # checks ('cuda' against 'cuda:0') fail
+        device = torch.device("cuda", torch.cuda.current_device())
     ep = torch.export.load(os.path.join(path, name))
     return move_to_device_pass(ep, str(device)).module()
+
+
+# Inductor options of a compile at load: no on-device timing picks a
+# kernel's configuration (Inductor's deterministic mode, which keeps the
+# reductions' configurations to one, and no pointwise autotuning), so a
+# program compiles to the same kernels, and answers the same bits, in
+# every process, and a cold compile times no kernel configurations.
+COMPILE_OPTIONS = {"deterministic": True, "triton.autotune_pointwise": False}
+
+
+def _compile_program(module, example_args):
+    """``module`` compiled by ``torch.compile`` (Inductor's default mode,
+    the whole graph, static shapes, :data:`COMPILE_OPTIONS`), as JAX's
+    ``jax.jit(exported.call)`` compiles a deserialized program. It
+    enables the persistent compile cache first
+    (:mod:`cbfssm_tpu_torch.utils.compile_cache`), and runs one call on
+    ``example_args`` under ``torch.no_grad``, so a compile error raises
+    here and the first request does not pay the compile.
+
+    No CUDA graphs (``reduce-overhead``): the kernel launch counters do
+    not count a replay. No ``max_autotune``: its Triton matmul templates
+    take TF32. Nothing is caught: if the compile fails, the load fails;
+    the uncompiled program is never run in its place."""
+    from cbfssm_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
+    compiled = torch.compile(module, fullgraph=True, dynamic=False, options=COMPILE_OPTIONS)
+    with torch.no_grad():
+        compiled(*example_args)
+    return compiled
 
 
 def gp_predict_nodes(program) -> int:
@@ -302,6 +343,14 @@ class ExportedPredictor:
     tensor, a sequence of tensors in draw order, or the model's noise
     dataclass, e.g. ``RolloutNoise``).
 
+    Compilation: on the card the program is compiled at load
+    (:func:`_compile_program`, with the persistent compile cache), as the
+    JAX package jits its deserialized call; ``compiled`` is the module a
+    call runs, ``program`` the uncompiled one. A compile failure raises
+    from the constructor. On the CPU the program runs uncompiled
+    (``compiled`` is None), as a kernel wrapper takes its plain version
+    there.
+
     >>> pred = ExportedPredictor(path)
     >>> out = pred(u, y)          # or pred(u, y, seed=s) / pred(u, y, noise=draws)
     >>> out["pred_mean"].shape    # [batch, seq_len, dim_y]
@@ -315,6 +364,16 @@ class ExportedPredictor:
         self.program = _load_program(path, _ARTIFACT, self.device)
         # on the device once: host leaves would be copied on every call
         self._params = _load_arrays(path, _PARAMS, "p", self.meta["n_params"], self.device)
+        self.compiled = (_compile_program(self.program, self._zero_args())
+                         if self.device.type == "cuda" else None)
+
+    def _zero_args(self) -> tuple:
+        """The program's arguments with zero inputs and draws."""
+        m = self.meta
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (self._params, torch.zeros((m["batch"], m["seq_len"], m["dim_u"]), **kw),
+                torch.zeros((m["batch"], m["seq_len"], m["dim_y"]), **kw),
+                tuple(torch.zeros(tuple(s), **kw) for s in m["noise_shapes"]))
 
     def _draw_noise(self, seed: int) -> list:
         """The draws of a call with ``seed``, in draw order."""
@@ -341,8 +400,9 @@ class ExportedPredictor:
             got = [list(a.shape) for a in draws]
             if got != m["noise_shapes"]:
                 raise ValueError(f"noise must have the shapes {m['noise_shapes']}, got {got}")
+        run = self.program if self.compiled is None else self.compiled
         with torch.no_grad():
-            return self.program(self._params, u, y, tuple(draws))
+            return run(self._params, u, y, tuple(draws))
 
 
 def load_exported_predictor(path, device="cuda"):

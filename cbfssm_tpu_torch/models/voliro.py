@@ -200,7 +200,10 @@ class Voliro(BaseSSM):
     def physical_model(self, local_coo):
         """Allocation-matrix force/torque [..., 6]. On the card in
         float32 this matmul runs in IEEE float32 (TF32 is refused)."""
-        return torch.matmul(local_coo, self.alloc.T) * self.post_scale
+        alloc_t = self.alloc.T
+        if alloc_t.device.type == "cpu":  # as in kernels.scaled_square_dist
+            alloc_t = alloc_t.contiguous()
+        return torch.matmul(local_coo, alloc_t) * self.post_scale
 
     @staticmethod
     def infer_dt(u):

@@ -15,7 +15,11 @@ def scaled_square_dist(x, z, lengthscales):
     zs = z / lengthscales
     xn = torch.sum(torch.square(xs), dim=-1)
     zn = torch.sum(torch.square(zs), dim=-1)
-    d2 = xn[:, None] - 2.0 * torch.matmul(xs, zs.T) + zn[None, :]
+    # A CPU operand is made contiguous: MKL takes another path for a
+    # transposed right operand at 2-4 rows, so a row's bits would depend on
+    # the row count. The card keeps the transposed operand and its GEMM.
+    zt = zs.T.contiguous() if zs.device.type == "cpu" else zs.T
+    d2 = xn[:, None] - 2.0 * torch.matmul(xs, zt) + zn[None, :]
     return torch.clamp_min(d2, 0.0)
 
 

@@ -97,7 +97,7 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    matplotlib is installed, ``voliro_forces.pdf`` (without it the two
    plots are skipped); and a ``Trainer`` epoch of CBFSSM at the full
    width of run_sarcos.py (dim_x 14, M 100, S 20, B 5, seq 250 / stride
-   10, recog_len 16), float32, cut to 16 Adam steps: 281 launches per
+   10, recog_len 16), float32, cut to 8 Adam steps: 281 launches per
    step and per test batch. For both, the two gp_impl paths on one
    batch with fixed noise (float64 loss rtol 1e-10, every gradient leaf
    rtol 1e-6, predict outputs rtol 1e-8; float32 against float64 on the
@@ -118,7 +118,7 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    single-lane entry, each timed by graph replay beside L single
    launches and its bound; (b) ``vmapped_reproduction`` of the Sarcos
    CBFSSM at the full width of run_sarcos.py, 5 seeds as lanes, float32,
-   'pallas', on phase 7's synthetic file with the epoch cut to 16 steps:
+   'pallas', on phase 7's synthetic file with the epoch cut to 8 steps:
    each step launches ``gp_predict_residuals_lanes`` 281 times and no
    single kernel, the test loss ``gp_predict_lanes`` 281 times a batch;
    run_0..run_4 and summary.txt are written (without matplotlib the
@@ -192,16 +192,24 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
 11. deployment artifacts, at the RoboMove phase-0 width, float32,
    ``gp_impl='pallas'``, its depth cut for time (``EXPORT_SEQ``,
    ``EXPORT_H``, ``EXPORT_REPLAY``): (a) ``save_exported_predictor`` of
-   phase 4's CBFSSM (seed-0 init) at B 1, seq 120, its export, save and
-   load seconds; the program holds 219 ``cbfssm_torch::gp_predict`` nodes
-   (``cbfssm_predict_launches(120, 50)``), 5 calls at seeds 0-4 launch
-   5 x 219, and each reply equals ``CompiledPredictor``'s at the seed
-   bitwise (else the largest difference is printed and held at rtol
-   2e-5); request ms of both; (b) ``serve <artifact>`` in a subprocess
-   (started while (a) loads): 2 requests, each equal to this process's
-   artifact at the dispatch seed, 2 x 219 launches; (c) ``python -m
-   cbfssm_tpu_torch export DIR --kind pool`` in a subprocess beside (a)
-   on a directory of phase 10's CBFSSMHALF (capacity 32, horizon 10,
+   phase 4's CBFSSM (seed-0 init) at B 1, seq 120, its export and save
+   seconds; loaded through ``ExportedBatchPredictor``, which compiles it
+   (``torch.compile``) on a fresh compile cache: the cold load's seconds,
+   and a warm load's in a new process on the same cache, which must hit
+   it; the program holds 219 ``cbfssm_torch::gp_predict`` nodes
+   (``cbfssm_predict_launches(120, 50)``), 5 compiled calls at seeds 0-4
+   launch 5 x 219, each reply within rtol 2e-5 of ``CompiledPredictor``'s
+   at the seed and of the uncompiled program's, which equals
+   ``CompiledPredictor``'s bitwise; request ms of the three in turns;
+   (a') a float64 artifact at the full width, recog_len 5 and seq 12,
+   compiled, within rtol 1e-12 of the live predictor and the uncompiled
+   program; (b) ``serve <artifact>`` in a subprocess on the warm cache:
+   2 requests, each equal to this process's compiled
+   artifact at the dispatch seed bitwise, 3 x 219 launches (its load's
+   call and the 2 requests); (c) ``python -m
+   cbfssm_tpu_torch export DIR --kind pool`` in a subprocess started
+   after phase 6 (beside phases 7-10) on a directory of phase 6's
+   CBFSSMHALF (capacity 32, horizon 10,
    replay bucket 16), loaded as an ``ExportedFilterPool``: 32
    attaches, 64 ticks, a forecast and a ragged replay of 1..16 steps
    (64 + 10 + 16 launches, 1 per tick, H per forecast, the padded length
@@ -324,7 +332,7 @@ TIMED_N = (12800, 1600)  # the RoboMove shapes, timed by graph replay
 # (DI, D) of the Voliro force and recognition GPs and the Sarcos
 # recognition and forward GPs
 MODEL_WIDTHS = ((12, 3), (19, 6), (21, 7), (21, 14))
-SARCOS_STEPS = 16  # Adam steps of phase 7's Sarcos epoch (a full one is 120)
+SARCOS_STEPS = 8  # Adam steps of phase 7's Sarcos epoch (a full one is 120)
 SARCOS_SEEDS = 5  # run_sarcos.iterations: phase 8's lanes
 # phase 8's lane-kernel shapes (L, N, M, DI, D): Sarcos recognition and
 # forward at 5 lanes, RoboMove recognition and forward at 4 (the sweep),
@@ -356,6 +364,7 @@ OP_CALLS = 2000  # the op's host cost
 # phase 11's depth, cut for time from the served shapes (seq 300, H 50,
 # replay 64): tracing a program takes time in proportion to its steps
 EXPORT_SEQ, EXPORT_H, EXPORT_REPLAY = 120, 10, 16
+EXPORT_SEQ_F64, EXPORT_RECOG_F64 = 12, 5  # phase 11 (a'): the float64 artifact's depth
 
 
 def fail(msg: str) -> None:
@@ -458,7 +467,10 @@ def phase_device():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # matmul is set only if TF32 is on: PyTorch's default (off) is part of
+    # the compile cache's key, which phase 11's processes share with this one
+    if torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 could not be turned off")
@@ -1483,7 +1495,7 @@ def phase_sarcos(card: str, data_dir: str):
     """The Sarcos training path: CBFSSM at the full width of
     run_sarcos.py (dim_x 14, M 100, S 20, B 5, seq 250 / stride 10,
     recog_len 16), float32, 'pallas', through ``Trainer`` for one epoch
-    cut to 16 Adam steps (the first 80 of the 600 training windows of a
+    cut to 8 Adam steps (the first 40 of the 600 training windows of a
     synthetic sarcos_inv.mat; all 60 test windows). Each step launches
     ``gp_predict_residuals`` 281 times (2 x 16 blocked recognition steps
     + 249 forward steps), each test batch ``gp_predict`` as often. Then
@@ -1653,7 +1665,7 @@ def lane_parity(make_model, stacked, lanes: int, ds, batch: int, seq_len: int, w
 def phase_sarcos_seeds(card: str, data_dir: str):
     """(b) ``vmapped_reproduction`` of the Sarcos CBFSSM at the full width
     of run_sarcos.py, float32, 'pallas', 5 seeds as lanes, one epoch cut
-    to 16 steps as phase 7 cuts it, then each seed's Outputs into
+    to 8 steps as phase 7 cuts it, then each seed's Outputs into
     run_i/ and summary.txt. Each step launches
     ``gp_predict_residuals_lanes`` 281 times and no single kernel; each
     test batch ``gp_predict_lanes`` 281 times. (e) The median step
@@ -3160,41 +3172,279 @@ def background_serve(args: list, log_dir: str, where: str, use):
     return join
 
 
-def export_predictor(card: str, tmp: str) -> dict:
-    """(a) + (b): the CBFSSM predictor at B 1, seq 120 exported from phase
-    4's params (seed-0 init), the program saved again alone (its save
-    seconds), ``serve <artifact>`` started in a subprocess (b), and the
-    artifact loaded here through ``ExportedBatchPredictor`` meanwhile.
-    Its program holds one ``gp_predict`` node per launch of the rule
-    (399); 5 calls at seeds 0-4 launch 5 x 399 (counted), each reply
-    bitwise equal to ``CompiledPredictor``'s at the seed (else the largest
-    difference, held at rtol 2e-5). The served process answers 2
-    requests, each equal to this process's artifact at the dispatch seed
-    ``fold_seed(0, k)``, with 2 x 399 launches. Returns the launches by
-    path."""
+# a second load of an artifact in a new process on the same compile
+# cache: its load seconds and Inductor's cache counters
+WARM_LOAD = (
+    "import json, sys, time\n"
+    "import torch\n"
+    "from torch._dynamo.utils import counters\n"
+    "from cbfssm_tpu_torch.export import ExportedPredictor\n"
+    "t0 = time.perf_counter()\n"
+    "pred = ExportedPredictor(sys.argv[1], device=sys.argv[2])\n"
+    "if sys.argv[2] == 'cuda':\n"
+    "    torch.cuda.synchronize()\n"
+    "print(json.dumps({'load_s': time.perf_counter() - t0, 'compiled': pred.compiled is not None,"
+    " 'counters': {k: dict(counters[k]) for k in ('inductor', 'aot_autograd')}}))\n")
+
+
+def warm_load(path: str) -> dict:
+    """:data:`WARM_LOAD` in its own process (it inherits the cache's
+    ``CBFSSM_XLA_CACHE``)."""
+    proc = subprocess.run([sys.executable, "-c", WARM_LOAD, path, DEVICE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"warm load: exit {proc.returncode}; stderr {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def program_call(pred, u, y, seed: int):
+    """The uncompiled program of an ``ExportedPredictor`` on the draws
+    of ``seed``: the call before compile-at-load."""
+    import torch
+
+    kw = dict(dtype=pred.dtype, device=pred.device)
+    with torch.no_grad():
+        return pred.program(pred._params, torch.as_tensor(u, **kw), torch.as_tensor(y, **kw),
+                            tuple(pred._draw_noise(seed)))
+
+
+def reply_field(out, f: str):
+    """Field ``f`` of a reply: a dict (an artifact's) or a PredictOutput."""
+    return out[f] if isinstance(out, dict) else getattr(out, f)
+
+
+def max_abs(outs, refs, fields) -> float:
+    """The largest |a - b| over the fields of two lists of replies."""
+    return max(float((reply_field(o, f) - reply_field(r, f)).abs().max())
+               for o, r in zip(outs, refs) for f in fields)
+
+
+def all_close(outs, refs, fields, rtol: float, atol: float) -> bool:
+    import torch
+
+    return all(torch.allclose(reply_field(o, f), reply_field(r, f), rtol=rtol, atol=atol)
+               for o, r in zip(outs, refs) for f in fields)
+
+
+def export_predictor_f64(card: str, tmp: str) -> None:
+    """(a') A float64 CBFSSM predictor at the full width and a small
+    depth (``EXPORT_RECOG_F64``, ``EXPORT_SEQ_F64``), compiled at load: its
+    replies at seeds 0-1 within rtol 1e-12 of the live predictor's and
+    of the uncompiled program's. Not a main path: uncounted."""
+    import os
+
+    import torch
+
+    from cbfssm_tpu_torch.export import ExportedPredictor, save_exported_predictor
+    from cbfssm_tpu_torch.models import CBFSSM
+    from cbfssm_tpu_torch.serving import CompiledPredictor
+
+    model = CBFSSM(config("float64", "pallas", recog_len=EXPORT_RECOG_F64), device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    u_all, y_all = (a[:1, :EXPORT_SEQ_F64] for a in served_windows())
+    path = os.path.join(tmp, "predictor_f64")
+    save_exported_predictor(path, model, params, 1, EXPORT_SEQ_F64)
+    t0 = time.perf_counter()
+    pred = ExportedPredictor(path, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    if DEVICE == "cuda" and pred.compiled is None:
+        fail("export_predictor_f64: the artifact was not compiled at load")
+    live = CompiledPredictor(model, params, 1, EXPORT_SEQ_F64)
+    fields = pred.meta["output_fields"]
+    outs = [pred(u_all, y_all, s) for s in range(2)]
+    raws = [program_call(pred, u_all, y_all, s) for s in range(2)]
+    refs = [live(u_all, y_all, s) for s in range(2)]
+    err, err_raw = max_abs(outs, refs, fields), max_abs(outs, raws, fields)
+    if not (all_close(outs, refs, fields, 1e-12, 1e-13)
+            and all_close(outs, raws, fields, 1e-12, 1e-13)):
+        fail(f"export_predictor_f64: compiled replies differ from live by {err:.3e} and from "
+             f"the uncompiled program by {err_raw:.3e} (max abs; rtol 1e-12, atol 1e-13)")
+    print(f"export_predictor_f64: CBFSSM B=1 T={EXPORT_SEQ_F64} recog_len {EXPORT_RECOG_F64} "
+          f"float64 compiled "
+          f"at load in {load_s:.2f} s (a graph new to the cache, in the cold-compile process); "
+          f"replies at seeds 0-1 within "
+          f"{err:.3e} of live and {err_raw:.3e} of the uncompiled program (max abs; rtol "
+          f"1e-12, atol 1e-13); {card}", flush=True)
+
+
+# phase 11's cold compile runs in a process of its own, started after
+# phase 4 and running beside phases 5-10, so that its minutes do not add
+# to the script's: (a)'s export and first, cold load, and (a')
+COLD_COMPILE = ("import json, sys\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "import chip_smoke\n"
+                "chip_smoke.DEVICE = sys.argv[3]\n"
+                "print('RESULT ' + json.dumps(chip_smoke.cold_compile(sys.argv[2], sys.argv[4])),"
+                " flush=True)\n")
+COLD_COMPILE_THREADS = 4  # Inductor's compile workers there: the other phases keep cores
+
+
+def build_tempdir() -> str:
+    """A new directory under ``build/``, removed when this script exits."""
+    import atexit
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    return tmp
+
+
+def kill_at_exit(proc) -> None:
+    """Kills ``proc`` when this script exits, if it still runs."""
+    import atexit
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+    atexit.register(stop)
+
+
+def start_cold_compile(card: str) -> dict:
+    """Starts :func:`cold_compile` in its own process on a new directory
+    under ``build/`` (its compile cache a fresh ``compile_cache`` there),
+    output to a log file."""
+    import os
+
+    tmp = build_tempdir()
+    env = dict(os.environ, CBFSSM_XLA_CACHE=os.path.join(tmp, "compile_cache"),
+               TORCHINDUCTOR_COMPILE_THREADS=str(COLD_COMPILE_THREADS))
+    for name in ("TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        env.pop(name, None)
+    log = open(os.path.join(tmp, "cold_compile.txt"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", COLD_COMPILE, str(ROOT), tmp, DEVICE, card],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True, env=env)
+    kill_at_exit(proc)
+    return {"proc": proc, "tmp": tmp, "log": log, "t0": time.perf_counter()}
+
+
+def cold_compile(tmp: str, card: str) -> dict:
+    """(a)'s first half and (a'), in the process of
+    :func:`start_cold_compile`: the CBFSSM predictor at B 1, seq
+    ``EXPORT_SEQ`` exported from phase 4's params (seed-0 init; its
+    export and save seconds apart), then loaded once through
+    ``ExportedPredictor`` on the fresh compile cache (``CBFSSM_XLA_CACHE``):
+    the cold load, which must compile; then the float64 artifact
+    (:func:`export_predictor_f64`). Returns the path, the seconds, the
+    program's size and the cold load's cache counters."""
+    import os
+
+    import torch
+    from torch._dynamo.utils import counters
+
+    from cbfssm_tpu_torch.export import ExportedPredictor, save_exported_predictor
+    from cbfssm_tpu_torch.models import CBFSSM
+
+    model = CBFSSM(config("float32", "pallas"), device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    path = os.path.join(tmp, "predictor")
+    saves = []
+    t0 = time.perf_counter()
+    with timed_saves(saves):
+        save_exported_predictor(path, model, params, 1, EXPORT_SEQ)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = ExportedPredictor(path, device=DEVICE)
+    sync()
+    cold_s = time.perf_counter() - t0
+    if DEVICE == "cuda" and pred.compiled is None:
+        fail("cold compile: the artifact was not compiled at load on the card")
+    out = {"path": path, "export_s": export_s - sum(saves), "save_s": sum(saves),
+           "mb": os.path.getsize(os.path.join(path, "predictor.pt2")) / 1e6, "cold_s": cold_s,
+           "counters": {k: dict(counters[k]) for k in ("inductor", "aot_autograd")}}
+    export_predictor_f64(card, tmp)
+    return out
+
+
+def join_cold_compile(cold: dict) -> dict:
+    """Waits for :func:`cold_compile`'s process and returns its result,
+    after echoing its other lines (the float64 artifact's)."""
+    proc, log = cold["proc"], cold["log"]
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("cold compile: the process did not finish")
+    log.seek(0)
+    lines = log.read().splitlines()
+    log.close()
+    if proc.returncode != 0:
+        fail(f"cold compile: exit {proc.returncode}; {chr(10).join(lines[-30:])}")
+    result = next(json.loads(ln[len("RESULT "):]) for ln in lines if ln.startswith("RESULT "))
+    for ln in lines:
+        if ln.startswith("export_predictor_f64"):
+            print(ln, flush=True)
+    result["wall_s"] = time.perf_counter() - cold["t0"]
+    return result
+
+
+def export_predictor(card: str, tmp: str, cold: dict) -> dict:
+    """(a) + (b): the CBFSSM predictor at B 1, seq 120 that
+    :func:`cold_compile` exported and first loaded (cold) in its own
+    process, loaded here through ``ExportedBatchPredictor`` on the same
+    compile cache, which it must hit (warm), as must a load in a new
+    process. Its program holds one ``gp_predict`` node per launch of the
+    rule (219); 5 compiled calls at seeds 0-4 launch 5 x 219 (counted),
+    each reply within rtol 2e-5 of ``CompiledPredictor``'s at the seed
+    and of the uncompiled program's, which stays bitwise equal to
+    ``CompiledPredictor``'s. Request ms of the three in turns. ``serve
+    <artifact>`` in a subprocess (b), on the warm cache, answers 2
+    requests, each bitwise equal to this process's compiled artifact at
+    the dispatch seed ``fold_seed(0, k)``, with 3 x 219 launches (its
+    load's call and the 2 requests). Returns the launches by path."""
     import os
     import statistics
 
     import numpy as np
     import torch
+    from torch._dynamo.utils import counters
 
-    from cbfssm_tpu_torch.export import gp_predict_nodes, save_exported_predictor
+    from cbfssm_tpu_torch.export import gp_predict_nodes
     from cbfssm_tpu_torch.models import CBFSSM
     from cbfssm_tpu_torch.serving import CompiledPredictor, fold_seed
     from cbfssm_tpu_torch.serving_http import ExportedBatchPredictor
+    from cbfssm_tpu_torch.utils import compile_cache
 
+    first = join_cold_compile(cold)
+    path = first["path"]
+    cache = os.path.join(cold["tmp"], "compile_cache")
+    os.environ["CBFSSM_XLA_CACHE"] = cache  # this process's loads and the subprocesses'
+    if not compile_cache.enable_persistent_cache(cache):
+        fail(f"export_predictor: the compile cache did not take {cache}")
     model = CBFSSM(config("float32", "pallas"), device=DEVICE)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
     u_all, y_all = (a[:, :EXPORT_SEQ] for a in served_windows())
     rule = cbfssm_predict_launches(EXPORT_SEQ, int(model.config.recog_len))
-    path = os.path.join(tmp, "predictor")
-    saves = []
-    t0 = time.perf_counter()
-    with timed_saves(saves):
-        meta = save_exported_predictor(path, model, params, 1, EXPORT_SEQ)
-    export_s = time.perf_counter() - t0
-    program = os.path.join(path, "predictor.pt2")
 
+    before = {k: dict(counters[k]) for k in ("inductor", "aot_autograd")}
+    t0 = time.perf_counter()
+    ebp = ExportedBatchPredictor(path, device=DEVICE)
+    here_s = time.perf_counter() - t0
+    pred, meta = ebp._pred, ebp.meta
+    here = {k: {n: v - before[k].get(n, 0) for n, v in counters[k].items()}
+            for k in ("inductor", "aot_autograd")}
+    if DEVICE == "cuda" and (pred.compiled is None
+                             or here["aot_autograd"].get("autograd_cache_hit", 0) < 1
+                             or here["aot_autograd"].get("autograd_cache_miss", 0)
+                             or here["inductor"].get("fxgraph_cache_miss", 0)):
+        fail(f"export_predictor: this process's load did not hit the compile cache: {here}")
+    nodes = gp_predict_nodes(pred.program)
+    if nodes != rule:
+        fail(f"export_predictor: {nodes} gp_predict nodes in the program, the rule is {rule}")
+    # the warm load and the served process start together, on the warm
+    # cache, while this process works
+    warm_out, warm_errors = [], []
+
+    def run_warm():
+        try:
+            warm_out.append(warm_load(path))
+        except (Exception, SystemExit) as e:  # fail() exits with SystemExit
+            warm_errors.append(e)
+
+    warm_thread = threading.Thread(target=run_warm, daemon=True)
+    warm_thread.start()
     ready, expected = threading.Event(), []
 
     def use(base):
@@ -3208,23 +3458,14 @@ def export_predictor(card: str, tmp: str) -> dict:
         return replies
 
     join = background_serve(["serve", path], tmp, "CLI serve <artifact>", use)
-    t0 = time.perf_counter()
-    ebp = ExportedBatchPredictor(path, device=DEVICE)
-    load_s = time.perf_counter() - t0
-    pred = ebp._pred
-    nodes = gp_predict_nodes(pred.program)
-    if nodes != rule:
-        fail(f"export_predictor: {nodes} gp_predict nodes in the program, the rule is {rule}")
     u1, y1 = u_all[:1], y_all[:1]
-    pred(u1, y1)  # first call: cuBLAS and allocator set-up
-    times = {"artifact": [], "live": []}
     reset_launches()
-    outs = [timed_call(times["artifact"], pred, u1, y1, s) for s in range(EXPORT_REQUESTS)]
+    outs = [pred(u1, y1, s) for s in range(EXPORT_REQUESTS)]
     counts = read_launches("export_predictor", EXPORT_REQUESTS * rule,
                            f"{EXPORT_REQUESTS} calls x {nodes} gp_predict nodes")
     live = CompiledPredictor(model, params, 1, EXPORT_SEQ)
-    live(u1, y1)
-    refs = [timed_call(times["live"], live, u1, y1, s) for s in range(EXPORT_REQUESTS)]
+    refs = [live(u1, y1, s) for s in range(EXPORT_REQUESTS)]
+    raws = [program_call(pred, u1, y1, s) for s in range(EXPORT_REQUESTS)]
     fields = meta["output_fields"]
     for out in outs:
         for f in fields:
@@ -3232,15 +3473,38 @@ def export_predictor(card: str, tmp: str) -> dict:
                 fail(f"export_predictor: {f} is not finite")
         if tuple(out["pred_mean"].shape) != (1, EXPORT_SEQ, 2):
             fail(f"export_predictor: pred_mean of shape {tuple(out['pred_mean'].shape)}")
-    bitwise = all(torch.equal(o[f], getattr(r, f)) for o, r in zip(outs, refs) for f in fields)
-    err = max(float((o[f] - getattr(r, f)).abs().max()) for o, r in zip(outs, refs)
-              for f in fields)
-    if not bitwise and not all(torch.allclose(o[f], getattr(r, f), rtol=2e-5, atol=1e-6)
-                               for o, r in zip(outs, refs) for f in fields):
-        fail(f"export_predictor: the artifact differs from CompiledPredictor by {err:.3e}")
+    raw_bitwise = all(torch.equal(o[f], getattr(r, f)) for o, r in zip(raws, refs)
+                      for f in fields)
+    if not raw_bitwise:
+        fail(f"export_predictor: the uncompiled program differs from CompiledPredictor by "
+             f"{max_abs(raws, refs, fields):.3e}")
+    err, err_raw = max_abs(outs, refs, fields), max_abs(outs, raws, fields)
+    if not (all_close(outs, refs, fields, 2e-5, 1e-6) and all_close(outs, raws, fields, 2e-5,
+                                                                    1e-6)):
+        fail(f"export_predictor: the compiled artifact differs from CompiledPredictor by "
+             f"{err:.3e} and from the uncompiled program by {err_raw:.3e} (max abs; rtol 2e-5, "
+             "atol 1e-6)")
+    # request ms of the three, in turns (uncounted)
+    calls = {"compiled": lambda s: pred(u1, y1, s),
+             "uncompiled": lambda s: program_call(pred, u1, y1, s),
+             "live": lambda s: live(u1, y1, s)}
+    times = {k: [] for k in calls}
+    for r in range(EXPORT_REQUESTS):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            sync()
+            timed_call(times[k], calls[k], r)
     # (b) what the served process must answer: dispatch k at fold_seed(0, k)
     expected.extend(ebp(u_all[k:k + 1], y_all[k:k + 1], fold_seed(0, k)) for k in range(2))
     ready.set()
+    warm_thread.join(timeout=900)
+    if warm_thread.is_alive() or warm_errors:
+        fail(f"warm load: {warm_errors[0] if warm_errors else 'did not finish'!r}")
+    warm = warm_out[0]
+    hits = warm["counters"]["aot_autograd"].get("autograd_cache_hit", 0)
+    misses = (warm["counters"]["aot_autograd"].get("autograd_cache_miss", 0)
+              + warm["counters"]["inductor"].get("fxgraph_cache_miss", 0))
+    if DEVICE == "cuda" and (not warm["compiled"] or hits < 1 or misses):
+        fail(f"export_predictor: the warm load compiled again: {warm}")
     banner, ready_s, replies, sub_counts = join()
     if replies is None or any(code != 200 for code, _ in replies):
         fail(f"CLI serve <artifact>: replies {str(replies)[:300]}")
@@ -3249,26 +3513,32 @@ def export_predictor(card: str, tmp: str) -> dict:
         for (_, reply), want in zip(replies, expected) for f in ("pred_mean", "pred_var", "sde"))
     http_err = max(float(np.abs(np.asarray(reply[f]) - getattr(want, f)[0]).max())
                    for (_, reply), want in zip(replies, expected) for f in ("pred_mean", "pred_var"))
-    if not http_bitwise and not all(
-            np.allclose(reply[f], getattr(want, f)[0], rtol=2e-5, atol=1e-6)
-            for (_, reply), want in zip(replies, expected) for f in ("pred_mean", "pred_var")):
-        fail(f"CLI serve <artifact>: replies differ from this process's artifact by {http_err:.3e}")
-    if sub_counts != (2 * rule, 0, 0, 0):
-        fail(f"CLI serve <artifact>: {COUNTERS} launches {sub_counts} != ({2 * rule}, 0, 0, 0)")
+    if not http_bitwise:
+        fail(f"CLI serve <artifact>: replies differ from this process's compiled artifact by "
+             f"{http_err:.3e}")
+    if sub_counts != (3 * rule, 0, 0, 0):
+        fail(f"CLI serve <artifact>: {COUNTERS} launches {sub_counts} != ({3 * rule}, 0, 0, 0) "
+             "(the load's call and 2 requests)")
     print(f"export_predictor: CBFSSM B=1 T={EXPORT_SEQ} float32 exported in "
-          f"{export_s - sum(saves):.2f} s and saved in {sum(saves):.2f} s "
-          f"({os.path.getsize(program) / 1e6:.2f} MB), loaded on the card in {load_s:.2f} s; {nodes} gp_predict nodes = the rule {rule}; {EXPORT_REQUESTS} "
-          f"calls launch {counts[0]}; replies vs CompiledPredictor at seeds 0-"
-          f"{EXPORT_REQUESTS - 1}: bitwise {bitwise} (max abs diff {err:.3e})", flush=True)
-    print(f"latency export_predictor (B=1, float32, host ms, median of {EXPORT_REQUESTS}): "
-          f"artifact {statistics.median(times['artifact']):.2f} "
-          f"({', '.join(f'{t:.2f}' for t in times['artifact'])}), live CompiledPredictor "
-          f"{statistics.median(times['live']):.2f} "
-          f"({', '.join(f'{t:.2f}' for t in times['live'])}); {card}", flush=True)
-    print(f"CLI serve <artifact>: {banner}; ready in {ready_s:.2f} s (loaded beside this "
-          f"process's load); 2 requests equal to this process's artifact: bitwise "
-          f"{http_bitwise} (max abs diff {http_err:.3e}); {COUNTERS} launches {sub_counts}",
-          flush=True)
+          f"{first['export_s']:.2f} s and saved in {first['save_s']:.2f} s "
+          f"({first['mb']:.2f} MB); {nodes} gp_predict nodes = the rule "
+          f"{rule}; {EXPORT_REQUESTS} compiled calls launch {counts[0]}; replies vs "
+          f"CompiledPredictor at seeds 0-{EXPORT_REQUESTS - 1}: compiled within {err:.3e} "
+          f"(max abs; rtol 2e-5, atol 1e-6), {err_raw:.3e} of the uncompiled program, which is "
+          f"bitwise {raw_bitwise}", flush=True)
+    print(f"compile at load export_predictor: cold {first['cold_s']:.2f} s (a fresh cache, in "
+          f"the cold-compile process beside phases 5-10 with {COLD_COMPILE_THREADS} compile "
+          f"workers; that process's export, load and float64 artifact {first['wall_s']:.2f} s of "
+          f"wall time; cache counters {first['counters']}); warm {here_s:.2f} s in this "
+          f"process ({here}) and {warm['load_s']:.2f} s in a new process beside the served "
+          f"process's load ({warm['counters']}); {card}", flush=True)
+    print(f"latency export_predictor (B=1, float32, host ms, median of {EXPORT_REQUESTS}, in "
+          f"turns): " + ", ".join(
+              f"{k} {statistics.median(v):.2f} ({', '.join(f'{t:.2f}' for t in v)})"
+              for k, v in times.items()) + f"; {card}", flush=True)
+    print(f"CLI serve <artifact>: {banner}; ready in {ready_s:.2f} s (warm cache); 2 requests "
+          f"equal to this process's compiled artifact: bitwise {http_bitwise} (max abs diff "
+          f"{http_err:.3e}); {COUNTERS} launches {sub_counts}", flush=True)
     return {"export_predictor": counts, "cli_serve_artifact": sub_counts}
 
 
@@ -3276,9 +3546,9 @@ def start_pool_export(tmp: str, params):
     """(c), first half: phase 10's CBFSSMHALF 'rnn' model with ``params``
     written as a trained directory, and ``python -m cbfssm_tpu_torch
     export DIR --kind pool --capacity 32 --horizons 10 --replay-buckets
-    16`` started on it in a subprocess (on the card), so the pool's trace
-    runs beside the predictor's. Returns what :func:`export_pool`
-    needs."""
+    16`` started on it in a subprocess (on the card), after phase 6, so
+    the pool's trace runs beside phases 7-10. Returns what
+    :func:`export_pool` needs."""
     import os
 
     import torch
@@ -3297,6 +3567,7 @@ def start_pool_export(tmp: str, params):
          "--kind", "pool", "--capacity", str(FLEET), "--horizons", str(EXPORT_H),
          "--replay-buckets", str(EXPORT_REPLAY), *dev],
         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True)
+    kill_at_exit(proc)
     return model, params, path, proc, log, time.perf_counter()
 
 
@@ -3437,8 +3708,8 @@ def export_pool(card: str, tmp: str, started) -> dict:
     med = {w: {k: statistics.median(v) for k, v in t.items()} for w, t in times.items()}
     print(f"export_pool: `python -m cbfssm_tpu_torch export --kind pool` of the CBFSSMHALF "
           f"directory (capacity {n}, horizon {EXPORT_H}, replay bucket {EXPORT_REPLAY}) wrote "
-          f"the artifact in {export_s:.2f} s of wall time (a subprocess, beside the "
-          f"predictor's export), loaded here on the card in {load_s:.2f} s; gp_predict nodes {nodes}; {n} attaches, {FILTER_TICKS} ticks, "
+          f"the artifact (a subprocess started after phase 6, joined {export_s:.2f} s after "
+          f"its start), loaded here on the card in {load_s:.2f} s; gp_predict nodes {nodes}; {n} attaches, {FILTER_TICKS} ticks, "
           f"forecast, ragged replay (lengths {int(lengths.min())}-{int(lengths.max())}) in "
           f"{run_s:.2f} s, launches {counts[0]}; every output equal to a live FilterPool's "
           f"bitwise; failover live -> artifact and artifact -> a seed-7 live standby: 3 ticks "
@@ -3526,22 +3797,25 @@ def op_host_cost(card: str) -> dict:
     return out
 
 
-def phase_export(card: str, half_params=None):
+def phase_export(card: str, half_params=None, cold=None, pool=None):
     """Phase 11: deployment artifacts at the RoboMove width (float32,
-    ``gp_impl='pallas'``): the predictor and its ``serve`` subprocess
-    (:func:`export_predictor`), the pool exported by the CLI in a
-    subprocess beside it and its ``serve --filter`` subprocess
-    (:func:`start_pool_export`, :func:`export_pool`, phase 6's trained
-    CBFSSMHALF ``params``), the bucket-cost fit (:func:`bucket_cost_fit`) and the
-    op's host cost (:func:`op_host_cost`). Returns (launches by path,
-    the fit, the host costs)."""
+    ``gp_impl='pallas'``): the predictor compiled at load, exported and
+    first loaded by ``cold`` (:func:`start_cold_compile`), and its
+    ``serve`` subprocess (:func:`export_predictor`), the pool that
+    ``pool``'s CLI subprocess exports (:func:`start_pool_export`, phase
+    6's trained CBFSSMHALF ``half_params``) and its ``serve --filter``
+    subprocess (:func:`export_pool`), the bucket-cost fit
+    (:func:`bucket_cost_fit`) and the op's host cost
+    (:func:`op_host_cost`). ``cold`` and ``pool`` are started here when
+    None. Returns (launches by path, the fit, the host costs)."""
     import tempfile
 
+    cold = cold or start_cold_compile(card)
+    pool = pool or start_pool_export(build_tempdir(), half_params)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        started = start_pool_export(tmp, half_params)
-        paths = export_predictor(card, tmp)
-        paths.update(export_pool(card, tmp, started))
+        paths = export_predictor(card, tmp, cold)
+        paths.update(export_pool(card, tmp, pool))
     fit = bucket_cost_fit(card)
     host_us = op_host_cost(card)
     print(f"export: launches by path {paths}", flush=True)
@@ -4284,14 +4558,17 @@ def main() -> None:
     max_err, times = timed("3 kernel", phase_kernel)
     res_err, res_times = timed("3b residual kernel", phase_residual_kernel)
     serving = timed("4 serving", phase_serving, card)
+    cold = start_cold_compile(card)  # phase 11's export and cold compile, beside phases 5-10
     training, training_paths = timed("5 training", phase_training, card)
     other, half_params = timed("6 CBFSSMHALF and PRSSM", phase_other_models, card)
+    pool = start_pool_export(build_tempdir(), half_params)  # phase 11 (c)'s, beside 7-10
     model_kernels, new_paths = timed("7 Voliro and Sarcos", phase_voliro_sarcos, card)
     lane_kernels, lane_paths = timed("8 lanes", phase_lanes, card)
     cli_paths = timed("9 CLI and HTTP", phase_cli_http, card)
     filter_kernels, filter_paths = timed("10 online filtering", phase_filters, card,
                                          half_params)
-    export_paths, cost_fit, op_host_us = timed("11 export", phase_export, card, half_params)
+    export_paths, cost_fit, op_host_us = timed("11 export", phase_export, card, half_params,
+                                               cold, pool)
     mesh_paths = timed("12 process groups", phase_mesh, card)
     last_paths = timed("13 last modules", phase_last_modules, card, half_params)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)

@@ -227,6 +227,35 @@ def test_voliro_two_draws_match_jax(voliro):
     close(got[2], want[2])
 
 
+@pytest.mark.parametrize("n_blocks", [2, 4])
+@pytest.mark.parametrize("gp_impl", ["pallas", "solve_free"])
+def test_meshed_voliro_pool_equals_unsharded_bitwise(gp_impl, n_blocks):
+    """A capacity-4 Voliro pool over 2 and 4 row blocks answers what the
+    unsharded pool answers, bitwise, through 4 attaches, 3 ticks and a
+    forecast (ROADMAP C9: the allocation matrix's transposed operand,
+    ``models/voliro.py``'s ``physical_model``, took another CPU BLAS path
+    at 1-2 rows a block)."""
+    from cbfssm_tpu_torch.parallel import local_mesh
+
+    cfg = voliro_small_config(filter_dt=0.01, recog_len=V_RECOG, gp_impl=gp_impl)
+    model = Voliro(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    u, y = voliro_batch(np.random.default_rng(8), b=4, t=8)
+
+    def run(mesh):
+        pool = FilterPool(model, params, capacity=4, seed=0, mesh=mesh)
+        sids = [pool.attach(u[i, :V_RECOG], y[i, :V_RECOG]) for i in range(4)]
+        out = []
+        for t in range(V_RECOG, V_RECOG + 3):
+            step = pool.step({s: (u[i, t - 1], y[i, t]) for i, s in enumerate(sids)})
+            out += [step[s][k] for s in sids for k in (0, 1)]
+        fc = pool.forecast({s: u[i, 4:7] for i, s in enumerate(sids)})
+        return out + [fc[s][k] for s in sids for k in (0, 1)] + [pool.state[0]]
+
+    for got, want in zip(run(local_mesh(["cpu"] * n_blocks)), run(None), strict=True):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
 def test_voliro_own_draws_replay_equals_sequential(voliro):
     _, _, pm, tparams, u, y = voliro
     seq = StreamingFilter(pm, tparams, batch=2, seed=3)

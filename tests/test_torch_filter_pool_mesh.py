@@ -159,9 +159,10 @@ def test_meshed_pool_equals_unsharded_bitwise(half, unsharded_run, n_blocks):
 @pytest.mark.parametrize("n_blocks", [2, 4])
 def test_meshed_solve_free_pool_within_c9(n_blocks):
     """The solve-free GP predict (``kernels.scaled_square_dist``'s
-    ``xs @ zs.T``): bitwise at 6 rows a block; at 3 rows a block CPU BLAS
-    takes another path for the transposed operand, and the sessions
-    agree to rtol 1e-14 (ROADMAP C9: 2.03e-15 measured)."""
+    ``xs @ zs.T``) is bitwise equal to the unsharded pool at 2 and 4
+    blocks, as JAX pins it (ROADMAP C9, repaired: CPU BLAS takes another
+    path for a transposed right operand at 2-4 rows, so the CPU operand is
+    made contiguous)."""
     model = CBFSSMHALF(half_config(gp_impl="solve_free"), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     want = pool_scenario(FilterPool(model, params, capacity=4, seed=0,
@@ -169,11 +170,7 @@ def test_meshed_solve_free_pool_within_c9(n_blocks):
     got = pool_scenario(FilterPool(model, params, capacity=4, seed=0,
                                    mesh=local_mesh(["cpu"] * n_blocks),
                                    replay_buckets=BUCKETS), scenario_data())
-
-    def c9(g, w):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-14, atol=0)
-
-    assert_outputs(got, want, bitwise if n_blocks == 2 else c9)
+    assert_outputs(got, want, bitwise)
 
 
 def test_meshed_pool_matches_jax_pool_on_a_mesh(half):

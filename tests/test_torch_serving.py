@@ -187,9 +187,11 @@ def test_cuda_kernel_path_matches_plain_path(served):
 @pytest.mark.cuda
 @pytest.mark.parametrize("traced_on", ["cpu", "cuda"])
 def test_cuda_exported_predictor_launches_the_kernel(served, tmp_path, traced_on):
-    """An artifact traced on either device, loaded on the GPU: every
-    cbfssm_torch::gp_predict node launches the kernel once (11 at T = 8),
-    and the reply equals the live CompiledPredictor's on the GPU bitwise."""
+    """An artifact traced on either device, loaded on the GPU (compiled
+    at load): every cbfssm_torch::gp_predict node launches the kernel
+    once (11 at T = 8); the uncompiled program's reply equals the live
+    CompiledPredictor's on the GPU bitwise, the compiled one's is within
+    rtol 1e-12 (float64) of it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
     from cbfssm_tpu_torch.export import ExportedPredictor, gp_predict_nodes, save_exported_predictor
@@ -204,10 +206,14 @@ def test_cuda_exported_predictor_launches_the_kernel(served, tmp_path, traced_on
     out = pred(u, y)
     torch.cuda.synchronize()
     assert fp.fused_predict.launches - before == gp_predict_nodes(pred.program) == 11
+    assert pred.compiled is not None
     live = CompiledPredictor(CBFSSM(tiny_config(), device="cuda"), params.to("cuda"), 2, T,
                              seed=4)(u, y)
+    raw = pred.program(pred._params, torch.as_tensor(u, device="cuda"),
+                       torch.as_tensor(y, device="cuda"), tuple(pred._draw_noise(4)))
     for name in out:
-        assert torch.equal(out[name], getattr(live, name)), name
+        assert torch.equal(raw[name], getattr(live, name)), name
+        torch.testing.assert_close(out[name], getattr(live, name), rtol=1e-12, atol=1e-13)
 
 
 @pytest.mark.cuda
