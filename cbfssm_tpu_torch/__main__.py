@@ -13,6 +13,7 @@
     python -m cbfssm_tpu_torch export run_output/robomove_half --out pool_art --kind pool
     python -m cbfssm_tpu_torch serve art                 # an exported predictor
     python -m cbfssm_tpu_torch serve --filter pool_art   # an exported pool
+    python -m cbfssm_tpu_torch bench                     # headline steps/sec on the card
 
 ``reproduce`` runs the port's own drivers (``cbfssm_tpu_torch.run_*``),
 ``eval``, ``serve`` and ``export`` rebuild the model from the directory's
@@ -25,9 +26,9 @@ loads a model runs on the card unless given ``--device cpu``.
 ``reproduce`` trains with ``gp_impl='pallas'``: the time recursions' GP
 predict runs the CUDA kernels (their plain versions on the CPU), and
 ``eval`` / ``serve`` / ``export`` rebuild that setting from the
-directory.
-
-Not ported yet: ``bench``.
+directory. ``bench`` runs :func:`cbfssm_tpu_torch.bench.main` in this
+process: the Voliro ELBO training steps a second on the card, and the
+stages after it, as one JSON line.
 """
 
 from __future__ import annotations
@@ -472,6 +473,13 @@ def cmd_serve(args) -> int:
     return _serve_until_interrupt(server, banner)
 
 
+def cmd_bench(_args) -> int:
+    from cbfssm_tpu_torch import bench
+
+    bench.main()
+    return 0
+
+
 def _add_device(parser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device of the model (default: cuda; 'cpu' for the CPU)")
@@ -589,6 +597,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "for the loopback default, set one for any non-loopback bind)")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
+
+    sub.add_parser("bench", help="headline ELBO steps/sec benchmark").set_defaults(fn=cmd_bench)
     return p
 
 

@@ -474,7 +474,7 @@ class MultiSeedTrainer:
             if epd > 1 and epochs - epoch >= epd:
                 handles = self._dispatch_block(ds, batch_size, epoch, epd)
                 if pending is not None:
-                    self._process_block(pending)
+                    self._process_block(pending, t_next=handles[2])
                 pending = handles
                 epoch += epd
                 continue
@@ -560,11 +560,12 @@ class MultiSeedTrainer:
                 "best": host_copy(best_loss)}
         return start, k, t0, host, ready_event(self.device), best_params, best_opt
 
-    def _process_block(self, handles):
+    def _process_block(self, handles, t_next: float | None = None):
         """The host half of a block: wait for its copies alone, gather
         the lanes of a mesh, point ``best_*`` at the block's best state,
-        log each epoch, and save the best checkpoint if any lane
-        improved."""
+        log each epoch with the block's time over k (to ``t_next``, the
+        next block's dispatch, when given: ``Trainer._process_block``),
+        and save the best checkpoint if any lane improved."""
         start, k, t0, host, event, best_params, best_opt = handles
         if event is not None:
             event.synchronize()
@@ -578,7 +579,7 @@ class MultiSeedTrainer:
         best_in = self._gather(host["best_in"].numpy())
         best = self._gather(host["best"].numpy())
         self.best_params, self.best_opt, self.best_loss = best_params, best_opt, best
-        dt = (time.perf_counter() - t0) / k
+        dt = ((time.perf_counter() if t_next is None else t_next) - t0) / k
         for j in range(k):
             if self._guard:
                 self._note_skipped(skipped_k[j])

@@ -108,6 +108,33 @@ def adam_leaf(p, g, m, v, step_size, bc2_sqrt, keep=None) -> None:
     p.copy_(p_new)
 
 
+@torch.no_grad()
+def adam_update(leaves, grads, states, lr: float, ok=None) -> None:
+    """One Adam step of every leaf (:func:`adam_leaf`) with the step count
+    on the device, so that nothing is read back. ``states`` holds one
+    dict a leaf in ``torch.optim.Adam``'s format (``step``, ``exp_avg``,
+    ``exp_avg_sq``), filled at the first step. With ``ok`` (a 0-d bool)
+    the step is applied only where it holds, the JAX
+    ``apply_update_guarded``'s ``where(ok, new, old)``. The count and the
+    bias corrections are computed once for all leaves."""
+    for p, state in zip(leaves, states):
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    count = states[0]["step"] + (1.0 if ok is None else ok.to(torch.float32))
+    t = count.to(torch.float64)
+    step_size = lr / (1.0 - BETA1 ** t)
+    bc2_sqrt = torch.sqrt(1.0 - BETA2 ** t)
+    keep = None if ok is None else ~ok
+    scalars = {}  # per dtype
+    for p, g, state in zip(leaves, grads, states):
+        if p.dtype not in scalars:
+            scalars[p.dtype] = (step_size.to(p.dtype), bc2_sqrt.to(p.dtype))
+        adam_leaf(p, g, state["exp_avg"], state["exp_avg_sq"], *scalars[p.dtype], keep)
+        state["step"].copy_(count)
+
+
 def batch_seed(seed: int, epoch: int, split: int, i: int) -> int:
     """The seed of batch ``i`` of ``split`` (0 train, 1 test) in
     ``epoch``: a function of the four numbers alone, as the JAX trainer's
@@ -309,33 +336,13 @@ class Trainer:
         applied = torch.ones((), dtype=torch.bool, device=loss.device) if ok is None else ok
         return loss.detach(), applied
 
-    @torch.no_grad()
     def _adam_update(self, leaves, ok=None) -> None:
-        """One Adam step, the lanes' update (:func:`adam_leaf`)
-        with the step count on the device, so that nothing is read back;
-        with ``ok`` (the guard's 0-d bool) applied only where it holds,
-        the JAX ``apply_update_guarded``'s ``where(ok, new, old)``. The
-        state lives in ``self.optimizer.state`` in ``torch.optim.Adam``'s
-        format, so checkpoints and ``load_state_dict`` are unchanged.
-        Every leaf steps together: the count and the bias corrections are
-        computed once."""
-        states = [self.optimizer.state[p] for p in leaves]
-        for p, state in zip(leaves, states):
-            if not state:
-                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
-                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-        count = states[0]["step"] + (1.0 if ok is None else ok.to(torch.float32))
-        t = count.to(torch.float64)
-        step_size = self.optimizer.param_groups[0]["lr"] / (1.0 - BETA1 ** t)
-        bc2_sqrt = torch.sqrt(1.0 - BETA2 ** t)
-        keep = None if ok is None else ~ok
-        scalars = {}  # per dtype
-        for p, state in zip(leaves, states):
-            if p.dtype not in scalars:
-                scalars[p.dtype] = (step_size.to(p.dtype), bc2_sqrt.to(p.dtype))
-            adam_leaf(p, p.grad, state["exp_avg"], state["exp_avg_sq"], *scalars[p.dtype], keep)
-            state["step"].copy_(count)
+        """One Adam step (:func:`adam_update`) on the leaves' ``.grad``,
+        with ``ok`` the guard's 0-d bool. The state lives in
+        ``self.optimizer.state`` in ``torch.optim.Adam``'s format, so
+        checkpoints and ``load_state_dict`` are unchanged."""
+        adam_update(leaves, [p.grad for p in leaves], [self.optimizer.state[p] for p in leaves],
+                    self.optimizer.param_groups[0]["lr"], ok)
 
     def _train_epoch(self, ds, batch_size, epoch):
         """Issue one training epoch; returns its mean loss and (with the
@@ -415,7 +422,8 @@ class Trainer:
                 # one-deep pipeline: issue block k+1, then read block k
                 handles = self._dispatch_block(ds, batch_size, epoch, epd, lowest_train)
                 if pending is not None:
-                    lowest_train = self._process_block(pending, lowest_train, steps_per_epoch)
+                    lowest_train = self._process_block(pending, lowest_train, steps_per_epoch,
+                                                       t_next=handles[2])
                 pending = handles
                 epoch += epd
                 continue
@@ -492,15 +500,20 @@ class Trainer:
                 opt[i] = {key: t.clone() for key, t in state.items()}
         return params, opt
 
-    def _process_block(self, handles, lowest_train: float, steps_per_epoch: int) -> float:
+    def _process_block(self, handles, lowest_train: float, steps_per_epoch: int,
+                       t_next: float | None = None) -> float:
         """The host half of a block: wait for its copies alone (the next
         block keeps running), log each epoch with the block's time over
         k, save the best checkpoint if the block improved on
-        ``lowest_train``; returns the new best train loss."""
+        ``lowest_train``; returns the new best train loss. The block's
+        time runs from its dispatch to ``t_next``, the next block's
+        dispatch, when one was issued before this read-back (C10: the
+        host issues a block as long as the block runs, so the read-back
+        comes a block late), else to the read-back."""
         start, k, t0, host, event = handles
         if event is not None:
             event.synchronize()
-        dt = (time.perf_counter() - t0) / k
+        dt = ((time.perf_counter() if t_next is None else t_next) - t0) / k
         for j in range(k):
             if self._guard:
                 self._note_skipped(int(host["skipped"][j]))

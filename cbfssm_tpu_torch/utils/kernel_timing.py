@@ -1,5 +1,6 @@
 """Device time of a kernel, and the operands the kernel checks use.
 
+:data:`PEAK_FLOPS` and :data:`PEAK_BYTES` are the card's published peaks.
 :func:`graph_replay_ms` times a kernel by capturing ``launches``
 back-to-back calls in one CUDA graph and replaying it: CUDA events around
 the replays, divided by the number of calls. The host's issue time is
@@ -14,6 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+# Published peaks of one NVIDIA H100 SXM (80 GB HBM3) at its 700 W
+# limit (NVIDIA's data sheet): CUDA-core FP32 and FP64 operations a
+# second (the fused kernels and the float32 training steps use no tensor
+# cores: TF32 is off) and HBM3 bytes a second. ``chip_smoke.bound`` and
+# ``cbfssm_tpu_torch.bench`` (``mfu_vs_f32_peak``) divide by them.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
 
 # Shapes (N, M, DI, D) of the kernel checks on the card: the two RoboMove
 # shapes, a ragged one, and edges of the kernel's tiling (on a 132-SM

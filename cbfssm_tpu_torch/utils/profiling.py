@@ -23,6 +23,11 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 
+# the discarded first cycle of :func:`trace` on the card
+_WARM_UP_KERNELS = 64
+_WARM_UP_S = 0.05
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` and write its trace into
@@ -30,13 +35,28 @@ def trace(log_dir: str):
     trace viewer and TensorBoard's profiler plugin read): host ops, and
     the card's kernels when CUDA is in use in this process. Yields the
     ``torch.profiler.profile`` object, whose ``events()`` hold the trace
-    once the block has ended."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    once the block has ended.
+
+    The block is the second cycle of a schedule whose first cycle, the
+    warm-up, is discarded; with CUDA the warm-up launches
+    ``_WARM_UP_KERNELS`` small kernels, waits for them and sleeps
+    ``_WARM_UP_S``. On an H100 host a trace without it lost the first
+    kernel events of the block, more with every trace the process had
+    taken; ``scripts/torch_trace_warmup.py`` compares the two forms."""
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        if cuda:
+            x = torch.zeros((), device=torch.cuda.current_device())
+            for _ in range(_WARM_UP_KERNELS):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(_WARM_UP_S)
+        prof.step()  # the warm-up ends and the recorded cycle starts
         yield prof
         if cuda:
             torch.cuda.synchronize()

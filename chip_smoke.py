@@ -257,7 +257,17 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    the native host loader loads (it fails if ``native.available()`` is
    false), its ``window_gather`` of the float64 RoboMove series equals
    numpy's gather bitwise and ``unwrap_euler_angles`` through it equals
-   its Python loop bitwise; each pair timed.
+   its Python loop bitwise; each pair timed;
+14. the bench (``cbfssm_tpu_torch.bench``, ``gp_impl='solve_free'``):
+   the headline Voliro parts on the card (B 16, seq 64, S 20, M 20,
+   float32), one bench step (loss and gradient) on the card against the
+   same step on the CPU from the same params and the same noise, drawn
+   on the CPU: loss rtol 1e-5, each gradient leaf's largest |a - b| at
+   most 1e-3 of its largest |b| (the observed ratios are printed);
+   ``bench.measure(steps=3, warmup=2)`` gives a finite positive rate;
+   the result line carries ``device``. It launches none of the four
+   kernels and is not one of the main paths below; no CPU baseline,
+   300-step chunk, Trainer or multi-seed stage runs here.
 
 Each phase prints its seconds. The main paths are phases 4, 5 and 6's
 four, phase 5's ``training_hand`` and ``trainer_profile``, phase 7's
@@ -319,10 +329,6 @@ STEPS_PER_CHUNK = 2 * 50 + (SEQ_LEN - 1)  # CBFSSM: blocked recognition + forwar
 FORWARD_STEPS = SEQ_LEN - 1  # CBFSSMHALF and PRSSM: the forward rollout only
 TRAIN_WINDOWS, TEST_WINDOWS, BATCH = 495, 95, 32  # RoboMove(300, 50)
 DEVICE = "cuda"
-# Published H100 SXM peaks at 700 W (NVIDIA data sheet): CUDA-core FP32
-# and FP64 (the kernels use no tensor cores) and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-PEAK_BYTES = 3.35e12
 SHAPES = {
     "recognition N=12800 M=100 DI=6 D=2": (12800, 100, 6, 2),
     "forward N=1600 M=100 DI=6 D=4": (1600, 100, 6, 4),
@@ -425,7 +431,10 @@ def bound(n, m, di, d, dtype: str, residuals: bool):
     for one predict. Operations per row: the cross-Gram 2*M*DI, the
     M-long epilogues (~9 M), w = kmn @ kinv 2*M^2, mean and the variance
     product 4*M*D; bytes: each input read once, each output written
-    once (with residuals also kmn and w, [N, M] each)."""
+    once (with residuals also kmn and w, [N, M] each), over the card's
+    peaks (``kernel_timing.PEAK_FLOPS``, ``PEAK_BYTES``)."""
+    from cbfssm_tpu_torch.utils.kernel_timing import PEAK_BYTES, PEAK_FLOPS
+
     itemsize = 4 if dtype == "float32" else 8
     ops = n * (2 * m * m + 2 * m * di + 4 * m * d + 9 * m + 3 * di)
     elems = n * di + m * di + di + 1 + m * m + 2 * m * d + 2 * n * d
@@ -4539,6 +4548,54 @@ def phase_last_modules(card: str, half_params=None) -> dict:
     return paths
 
 
+BENCH_NOISE_SEED = 11  # phase 14: the CPU generator of the step's noise
+
+
+def phase_bench(card: str) -> None:
+    """Phase 14: the bench's step on the card against the CPU, a short
+    ``bench.measure`` and the result line's ``device``."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from cbfssm_tpu_torch import bench
+    from cbfssm_tpu_torch.models.voliro import VoliroNoise
+
+    reset_launches()
+    model, params, u, y = bench.build_voliro_parts(device=DEVICE)
+    cpu_model, cpu_params, _, _ = bench.build_voliro_parts(device="cpu",
+                                                           params=params.to("cpu"))
+    noise = cpu_model.draw_noise(torch.Generator().manual_seed(BENCH_NOISE_SEED),
+                                 bench.SEQ_LEN, bench.BATCH)
+    card_noise = VoliroNoise(*(getattr(noise, f.name).to(DEVICE)
+                               for f in dataclasses.fields(noise)))
+    loss, grads = bench.Step(model, params, u, y, bench.LEARNING_RATE)(noise=card_noise)
+    want_loss, want = bench.Step(cpu_model, cpu_params, u, y, bench.LEARNING_RATE)(noise=noise)
+    loss = loss.item()
+    loss_ratio = abs(loss - want_loss.item()) / (1e-5 * abs(want_loss.item()))
+    grad_ratios = [float((g.cpu() - w).abs().max() / (1e-3 * w.abs().max().clamp_min(1e-30)))
+                   for g, w in zip(grads, want)]
+    print(f"bench: one float32 step on the card against the CPU: loss {loss!r} against "
+          f"{want_loss.item()!r} ({loss_ratio:.3f} of rtol 1e-5); gradient leaves' max |a - b| "
+          f"over 1e-3 max |b|: {', '.join(f'{r:.4f}' for r in grad_ratios)}", flush=True)
+    if not np.isfinite(loss) or loss_ratio > 1.0 or max(grad_ratios) > 1.0:
+        fail(f"bench: the card's step differs from the CPU's (loss {loss_ratio:.3f}, "
+             f"gradients {max(grad_ratios):.4f} of their bounds)")
+    t0 = time.perf_counter()
+    rate = bench.measure(steps=3, warmup=2, device=DEVICE)
+    if not (np.isfinite(rate) and rate > 0):
+        fail(f"bench: measure(steps=3, warmup=2) gave {rate!r} steps/sec")
+    print(f"bench: measure(steps=3, warmup=2) {rate:.4f} steps/sec in "
+          f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        payload = bench._emit_json({"value": round(rate, 3), "device": bench.device_info()})
+    if json.loads(out.getvalue()) != payload or not payload["device"].get("name"):
+        fail(f"bench: the result line {out.getvalue().strip()} carries no device")
+    print(f"bench: the result line carries device {payload['device']}", flush=True)
+    read_launches("bench", (0, 0, 0, 0), "gp_impl='solve_free' launches none of the kernels")
+
+
 def main() -> None:
     if not (ROOT / "cbfssm_tpu_torch" / "__init__.py").is_file():
         fail("cbfssm_tpu_torch/ is not beside chip_smoke.py; run from the repository")
@@ -4571,6 +4628,7 @@ def main() -> None:
                                                cold, pool)
     mesh_paths = timed("12 process groups", phase_mesh, card)
     last_paths = timed("13 last modules", phase_last_modules, card, half_params)
+    timed("14 bench", phase_bench, card)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s", flush=True)
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -19,6 +19,8 @@ Pinned here, on tests/test_trainer.SmokeDS's windows:
 - the Trainer's Adam step (the lanes' update, its count on the device)
   tracks ``torch.optim.Adam``'s step, the update before blocks, at the
   JAX comparisons' rtol 1e-6 (not bitwise: the two round differently);
+- each epoch is logged with its own time (C10: a block's epochs counted
+  the next block's issue too);
 - an invalid value raises. The blocked ``Trainer`` on a 2-rank mesh is a
   case of tests/test_torch_distributed.py's rank group; the card's twins
   are the ``cuda`` tests at the end (the sync debug mode in error there).
@@ -26,6 +28,7 @@ Pinned here, on tests/test_trainer.SmokeDS's windows:
 
 import contextlib
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -325,6 +328,47 @@ def test_sweep_blocked_equals_per_epoch(tmp_path, monkeypatch, ds):
 
 
 # --- on the card -------------------------------------------------------------------
+
+
+class FakeClock:
+    """``time`` for the trainers' modules: ``perf_counter`` reads a clock
+    that each issued training epoch advances by one second."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
+@pytest.mark.parametrize("cls", [Trainer, MultiSeedTrainer])
+def test_logged_epoch_seconds_sum_to_the_run(tmp_path, monkeypatch, ds, cls):
+    """C10: a block's epochs are logged with its own time over k. The
+    host reads block k back after it issued block k+1, and issuing is
+    the work here (and on a host-bound card), so the time to the
+    read-back counted block k+1 too: 2 s an epoch where each took 1 s,
+    and the logged seconds of a run summed to more than its wall time."""
+    clock = FakeClock()
+    monkeypatch.setattr(sys.modules[cls.__module__], "time", clock)
+    kwargs = {"n_seeds": 2} if cls is MultiSeedTrainer else {}
+    trainer = cls(model(), str(tmp_path / "run"), epochs_per_dispatch=2, **kwargs)
+    train_epoch, log_epoch = trainer._epoch_train, trainer._log_epoch
+    if cls is Trainer:
+        train_epoch = trainer._train_epoch
+    seconds = []
+
+    def timed_epoch(*args):
+        clock.now += 1.0
+        return train_epoch(*args)
+
+    def logged(epoch, train, test, dt, *args):
+        seconds.append(dt)
+        return log_epoch(epoch, train, test, dt, *args)
+
+    setattr(trainer, "_train_epoch" if cls is Trainer else "_epoch_train", timed_epoch)
+    trainer._log_epoch = logged
+    trainer.train(ds, EPOCHS)
+    assert seconds == [1.0] * EPOCHS
 
 
 @pytest.fixture

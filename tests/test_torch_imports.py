@@ -53,7 +53,7 @@ import cbfssm_tpu_torch.parallel, cbfssm_tpu_torch.parallel.distributed
 import cbfssm_tpu_torch.parallel.sharding, cbfssm_tpu_torch.parallel.particle
 import cbfssm_tpu_torch.parallel.census, cbfssm_tpu_torch.parallel.local
 import cbfssm_tpu_torch.native, cbfssm_tpu_torch.utils.transfer
-import cbfssm_tpu_torch.utils.compile_cache
+import cbfssm_tpu_torch.utils.compile_cache, cbfssm_tpu_torch.bench
 import chip_smoke
 """ + NOT_LOADED
 
