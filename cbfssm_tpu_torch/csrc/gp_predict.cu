@@ -2,22 +2,34 @@
 //
 // Replaces cbfssm_tpu/ops/pallas/gp_predict.py::_kernel and
 // ::_kernel_with_residuals (the two Pallas TPU kernels launched by
-// _pallas_forward). For N query rows x [N, DI] against M inducing points
-// it computes
+// _pallas_forward, and the batched pallas_call that jax.vmap makes of
+// each). For N query rows x [N, DI] against M inducing points it computes
 //
 //   xs   = x * inv_ls
 //   d2   = max(|xs|^2 - 2 xs.zs^T + |zs|^2, 0)
 //   kmn  = kvar * exp(-d2 / 2)                      [N, M]
-//   w    = kmn @ kinv                               [N, M]
-//   mean = kmn @ alpha                              [N, D]
+//   [w | mean] = kmn @ [kinv | alpha]               [N, M + D]
 //   var  = max(kvar - sum_m kmn*w, 0) + (w*w) @ var_q   [N, D]
 //
 // The gp_predict_* entry points write only mean and var. The
 // gp_predict_residuals_* entry points (the forward of the training path,
 // whose analytic backward needs kmn and w) also write kmn [N, M] and
-// w [N, M]; one template, switched by kResiduals, serves both.
-// Accumulation is in the storage type with IEEE FMA (no tensor cores, so
-// no TF32). Both clamps of the TPU kernel are kept.
+// w [N, M]; one template, switched by kResiduals, serves both. Both
+// clamps of the TPU kernel are kept.
+//
+// Precision. The TPU kernel runs its products at Precision.HIGHEST, a
+// multi-pass emulation of f32 on its matrix unit. Here the product
+// [w | mean] runs on the tensor cores: in float64 as DMMA (mma.sync
+// m8n8k4 .f64), in float32 as 3xTF32 (mma.sync m16n8k8 .tf32). Each f32
+// operand is split into a TF32 high part (rounded to nearest) and a low
+// part (the remainder: rounded to nearest for kmn, read by the tensor
+// core's TF32 truncation for [kinv | alpha]), and lo*hi + hi*lo + hi*hi
+// is summed; lo*lo, below f32's rounding, is dropped. Plain TF32 is not
+// used. The tensor core's own sum covers one k-step (8 products in f32,
+// 4 in f64): each k-step's result is added to the running sum with one
+// IEEE add in registers, so that the long sum rounds as a CUDA-core sum
+// does. Everything else (norms, the cross-Gram, exp, the partial sums
+// of qf and the variances) is IEEE arithmetic in the storage type.
 //
 // Lanes. The *_lanes entry points run L independent predicts in one
 // launch, the counterpart of the batched pallas_call that jax.vmap makes
@@ -30,81 +42,102 @@
 // launch; the M cap (gp_predict_max_m) holds per lane. The plain entry
 // points are the L = 1 case.
 //
-// Design. One block of 256 threads per tile of TN rows; rows are
-// independent, so nothing is reduced across blocks, and the ragged last
-// tile is bounded by its own row count. Nothing is padded in device
-// memory; inside shared memory M is padded to Mp, a multiple of the
-// 4-wide micro-tile, with zero kinv rows and columns and zero kmn
-// entries, and no padded column is ever written out.
-//  - Staging: zs, kinv, alpha, var_q and the tile's rows of x are read in
-//    one pass of 16-byte loads (float4 / double2), up to 12 a thread in
-//    flight before any is stored (inv_ls, DI values, is loaded before
-//    the pass and stored after it). kinv keeps its layout (16-byte
-//    stores) when M is a multiple of 4; zs, alpha, var_q and x are stored
-//    transposed, so that the loops below read them on neighbouring words.
-//  - Phase 1: each thread computes a 4 x 4 micro-tile of kmn from two
-//    16-byte loads per input dimension (4 rows of xs, 4 columns of zs)
-//    and stores it row-major with 16-byte stores.
-//  - Phase 2, w = kmn @ kinv, register-tiled: each thread owns a 4 x 4
-//    micro-tile of w in registers. Per 4 steps of k it makes 8 16-byte
-//    loads (4 rows of kmn, 4 rows of kinv) and 64 FMAs: two shared loads
-//    per 16 FMAs, where one output a thread takes two per FMA.
-//    Neighbouring threads take neighbouring column groups, so the kinv
-//    loads are contiguous and the kmn loads broadcast; the micro-tile is
-//    stored row-major with 16-byte stores on neighbouring addresses.
-//  - Phase 3: one warp per row. Each lane sums, in one pass over its
-//    columns, qf, the D mean columns and the D variance columns (and,
-//    with residuals, writes the row's kmn and w, neighbouring lanes on
-//    neighbouring addresses). One shuffle tree then reduces the 1 + 2*D
-//    values together as a reduce-scatter: 10 shuffles at D = 2 and 17 at
-//    D = 4 with the broadcast of qf (25 and 45 as one tree per value).
-//    D above 4 is taken 4 columns at a time.
-//  - The row stride of kmn and w in shared memory is an odd number of
-//    16-byte chunks, so that 16-byte stores of neighbouring rows fall on
-//    distinct banks.
+// Design. One block of 256 threads (8 warps) per tile of TN rows; rows
+// are independent, so nothing is reduced across blocks, and the ragged
+// last tile is bounded by its own row count.
+//  - Staging, asynchronous (cp.async: 16-byte copies where both sides
+//    allow it, else one element a copy), in two groups. Group 1 is what
+//    phase 1 needs: the tile's rows of x, zs (both transposed) and
+//    inv_ls. Group 2 is the rest: kinv with alpha beside it, the B
+//    operand [kinv | alpha] (row k holds kinv[k, :] then alpha[k, :]),
+//    and var_q (transposed). The block waits for group 1 only, scales x,
+//    takes the norms and runs phase 1 while group 2 is in flight, and
+//    waits for group 2 just before phase 2.
+//  - Phase 1: one thread per (row, 4 columns) of kmn, a thread keeping
+//    its columns over the rows: DI steps of one xs load (a broadcast) and
+//    one 16-byte zs load, then the clamp and exp, one 16-byte store to
+//    shared memory and, with residuals, the row of kmn out. Columns M ..
+//    Kp (Kp = M rounded up to the mma depth) are stored as zeros: the
+//    padding phase 2 reads.
+//  - Phase 2, on the tensor cores: [w | mean] = kmn @ [kinv | alpha].
+//    A work item is one mma row tile (16 rows in f32, 8 in f64) by two
+//    neighbouring 8-column tiles (one at the right edge), the warps
+//    taking the items in turn: at TN 4-8 (one row tile, 7 column pairs
+//    at M + D = 102-104) seven of the eight warps hold mma tiles. A
+//    fragments are read from kmn in shared memory (in f32 each lane's
+//    two k indices of a step are neighbouring columns, one 8-byte load a
+//    row), B fragments from [kinv | alpha], each split on the fly. kinv
+//    rows past M read as zero in registers; rows past the tile read the
+//    tile's last row and columns past M + D whatever lies there, and
+//    neither is stored.
+//  - The item's epilogue (phase 3 fused into it): each lane writes its
+//    sums out as w (with residuals) or mean, and for the item's 16
+//    columns of w the partial qf (sum of kmn * w) and variance sums (of
+//    w^2 * var_q) of its rows, reduced over the row's 4 lanes by a
+//    two-level shuffle reduce-scatter, 4 values at a time, into shared
+//    memory. After a barrier, one thread per (row, variance column)
+//    adds the partial sums of the ceil(M / 16) column groups in order
+//    and writes var = max(kvar - qf, 0) + the variance sum.
+//  - Every sum a row's result depends on runs in the same order whatever
+//    N, L and TN are and whichever block, warp or lane holds the row: the
+//    k-steps of phase 2 in order (an mma output depends only on its own
+//    row of A and column of B), the partial sums by column group. So a
+//    lane of a lane launch equals the single entry, and a row block
+//    equals the same rows in a larger launch, bit for bit.
+//
+// Shared memory (one block, elements of the storage type): [kinv | alpha]
+// M x ldb; kmn TN x ldk; var_q D x M; then phase 1's operands (zs DI x
+// Kp, |zs|^2, inv_ls, xs DI x TN, |xs|^2), whose space the partial sums
+// (TN x ceil(M / 16) x (1 + D)) take over once phase 1 is done. Nothing
+// is padded in device memory. The leading dimensions make the fragment
+// loads hit 32 distinct banks: ldb = 4 (mod 8); ldk = 8 (mod 16) in f32,
+// 4 (mod 8) in f64. At M = 100, DI = 6 (the last two rows are the
+// serving path at batch 1, whose grids are smaller than the card):
+//
+//   shape                   TN  blocks  f32 bytes  f64 bytes  blocks/SM (f32, f64)
+//   N = 12,800, D = 2       52     247     70,032    138,336  2, 1
+//   N =  1,600, D = 4        8     200     51,296    102,096  2, 2
+//   N =    400, D = 2        4     100     48,720     97,072  1 (grid < SMs)
+//   N =     50, D = 4        4      13     49,520     98,672  1 (grid < SMs)
+//
+// Registers (nvcc -Xptxas -v, sm_90a): float value 109, float residuals
+// 102, double value 107, double residuals 115; no spill and no stack
+// frame in any instantiation (the earlier FMA design held 128 and
+// spilled in three of the four).
 //
 // Tiles. TN is a multiple of 4 chosen from the rows of the launch (N, or
 // L * N with lanes): the smallest for which the grid has at most
-// kBlocksPerSm = 2 blocks per SM, so that the main-path
-// shapes fill the card's 132 SMs in one wave; a tile that does not fit
-// the opt-in shared-memory limit shrinks by 4 rows until it does. All of
-// kinv is staged, so M is capped: gp_predict_max_m gives the largest M
-// that fits at the smallest tile, and the wrappers refuse a larger one.
-// D = 0 (no output column) is allowed; N must be positive (the
-// wrappers return empty outputs at N = 0 without calling in).
-// __launch_bounds__(256, 2) holds a thread to 128 registers, so that two
-// blocks fit an SM. At M = 100, DI = 6 (dynamic shared memory per block;
-// the last two rows are the serving path at batch 1, whose grids are
-// smaller than the card):
+// kBlocksPerSm = 2 blocks per SM, so that the main-path shapes fill the
+// card's 132 SMs in one wave; a tile that does not fit the opt-in
+// shared-memory limit shrinks by 4 rows until it does. All of kinv is
+// staged, so M is capped: gp_predict_max_m gives the largest M that fits
+// at the smallest tile, and the wrappers refuse a larger one. D = 0 (no
+// output column) is allowed; N must be positive (the wrappers return
+// empty outputs at N = 0 without calling in). __launch_bounds__(256, 2)
+// holds a thread to 128 registers, so that two blocks fit an SM.
 //
-//   shape                   TN  blocks  f32 bytes  f64 bytes  blocks/SM (f32, f64)
-//   N = 12,800, D = 2       52     247     87,488    176,624  2, 1
-//   N =  1,600, D = 4        8     200     52,656    105,552  2, 2
-//   N =    400, D = 2        4     100     47,744     95,600  1 (grid < SMs)
-//   N =     50, D = 4        4      13     49,344     98,800  1 (grid < SMs)
+// What bounds it. Per row 2*M*(M + D) operations in the product and
+// ~2*M*(DI + D) + ~9*M elsewhere: at N = 12,800 0.26 GFLOP at 3xTF32's
+// rate (a third of TF32's 495 TFLOP/s) and 0.03 GFLOP at the f32
+// CUDA-core peak, 2.1 us together (chip_smoke.bound), against ~3.2 us
+// of device-memory traffic with residuals (kmn and w, 10.2 MB).
+// Neither holds it on an H100: it is bound by the tensor cores' rate
+// for mma.sync and by latency. mma.sync m16n8k8 TF32 sustains about one
+// instruction per 7 cycles per SM sub-partition there (a 4-chain, 16-
+// warp microbenchmark), so 3xTF32 is at most ~1.7x the f32 FMA rate,
+// less the padding of the last 16-row tile (52 rows take 64). Measured
+// at N = 12,800 (float32, CUDA-graph replay, H100 80GB HBM3 at 700 W,
+// leaving out one part at a time): phase 2's k-loop ~9.9 us of 20.6, of
+// which 3xTF32's two extra products ~3.9 us; the epilogue ~3.0 us;
+// phase 1 ~2.7 us; phase 3 ~0.4 us; the asynchronous staging hides
+// ~1.3 us of the copies. In float64 phase 1 leads (~9 us of 43: exp).
 //
-// Every block re-stages kinv, 40 KB in f32 from L2: 9.9 MB per launch at
-// N = 12,800, 8.0 MB at N = 1,600. Measured on an H100 (f32, CUDA-graph
-// replay): a tile of 52 rows beat 4, 16, 32, 36 and 64 at N = 12,800; at
-// N = 1,600, 8 rows beat 4 and 32 and were within 7 % of 16; at N = 400
-// and N = 50, 4 rows beat 8 and 16 (a block takes about as long at 4
-// rows as at 16, so more, smaller blocks finish sooner).
-//
-// What bounds it. Per row ~2*M*M + 2*M*(DI + 2*D) + ~9*M operations:
-// ~0.28 GFLOP at N = 12,800 (4.4 us at the f32 CUDA-core peak), against
-// ~3.2 us of device-memory traffic with residuals (kmn and w, 10.2 MB).
-// On an H100 it takes 5x the operation bound at N = 12,800 and ~18x at
-// N = 1,600, so neither bound holds it: it is bound by latency, with two
-// blocks of 8 warps an SM (128 registers a thread). Per-phase clock64()
-// readings of an instrumented build put phase 2 first at N = 12,800, at
-// about 40 % of the FMA rate, then phase 3 and staging; at N = 1,600
-// staging, the re-read of kinv from L2 by every block, comes first, then
-// phase 2.
-//
-// Later work, not done here: cp.async/TMA staging, persistent blocks
-// that stage kinv once per SM, 3xTF32 mma/wgmma or f64 DMMA for phase 2,
-// alpha folded into phase 2, CUDA graphs over the steps of a request,
-// a fused backward kernel.
+// Later work, not done here: persistent blocks that stage kinv once per
+// SM and walk their tiles (every block re-stages kinv from L2, 40 KB in
+// f32: 9.9 MB a launch at N = 12,800, 8.0 MB at N = 1,600), or a cluster
+// with TMA multicast of kinv; wgmma (full-rate tensor cores; the split
+// operands would then have to sit in shared memory); CUDA graphs over
+// the steps of a request; a fused backward kernel.
 
 #include <cuda_runtime.h>
 
@@ -117,50 +150,53 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kR = 4;     // micro-tile rows and columns
-constexpr int kMaxD = 4;  // output columns reduced in one pass
+constexpr int kR = 4;     // row-tile granularity; phase 1's columns per thread
 constexpr int kMaxTileRows = 64;
 constexpr int kBlocksPerSm = 2;
+constexpr int kTileN = 8;  // columns of an mma tile (both types)
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { using type = float4; };
-template <> struct Vec<double> { using type = double2; };
+// The mma shape of phase 2: rows and depth of one tile.
+template <typename T> struct Mma;
+template <> struct Mma<float> { static constexpr int kM = 16, kK = 8; };  // m16n8k8 .tf32
+template <> struct Mma<double> { static constexpr int kM = 8, kK = 4; };  // m8n8k4 .f64
 
 __host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// A row stride (in elements, a multiple of the 16-byte vector) that is an
-// odd number of 16-byte chunks.
-template <typename T>
-__host__ __device__ __forceinline__ int skew(int cols) {
-    constexpr int kV = 16 / sizeof(T);
-    const int ld = round_up(cols, kV);
-    return (ld / kV) % 2 == 0 ? ld + kV : ld;
+// The smallest value >= v that is r modulo `mod`.
+__host__ __device__ __forceinline__ int at_residue(int v, int mod, int r) {
+    return v + ((r - v % mod) % mod + mod) % mod;
 }
 
 // Offsets (in elements) of the shared-memory regions; each starts on a
 // 16-byte boundary. Computed alike on the host (size) and the device.
 struct Layout {
-    int mp, ldm;
-    int zs, zn, ils, alpha, varq, kinv, xs, xn, kmn, w, total;
+    int kp, np, ldb, ldk;
+    int kb, kmn, varq, zs, zn, ils, xs, xn, part, total;
 };
 
 template <typename T>
 __host__ __device__ __forceinline__ Layout layout(int m, int di, int d, int tn) {
     constexpr int kV = 16 / sizeof(T);
     Layout l;
-    l.mp = round_up(m, kR);
-    l.ldm = skew<T>(l.mp);
-    l.zs = 0;
-    l.zn = l.zs + di * l.mp;
-    l.ils = l.zn + l.mp;
-    l.alpha = l.ils + round_up(di, kV);
-    l.varq = l.alpha + round_up(d * m, kV);
-    l.kinv = l.varq + round_up(d * m, kV);
-    l.xs = l.kinv + l.mp * l.mp;
-    l.xn = l.xs + di * tn;
-    l.kmn = l.xn + tn;
-    l.w = l.kmn + tn * l.ldm;
-    l.total = l.w + tn * l.ldm;
+    l.kp = round_up(m, Mma<T>::kK);
+    l.np = (m + 2 * kTileN - 1) / (2 * kTileN);
+    l.ldb = at_residue(m + d, 8, 4);
+    l.ldk = sizeof(T) == 4 ? at_residue(l.kp, 16, 8) : at_residue(l.kp, 8, 4);
+    // B rows past M are not stored (they read as zero); B columns past
+    // M + D are read and never used, up to 15 elements past the region
+    // (into kmn's)
+    l.kb = 0;
+    l.kmn = l.kb + round_up(m * l.ldb, kV);
+    l.varq = l.kmn + round_up(tn * l.ldk, kV);
+    l.zs = l.varq + round_up(d * m, kV);
+    l.zn = l.zs + round_up(di * l.kp, kV);
+    l.ils = l.zn + l.kp;
+    l.xs = l.ils + round_up(di, kV);
+    l.xn = l.xs + round_up(di * tn, kV);
+    l.part = l.zs;  // phase 2's partial sums take over phase 1's operands
+    const int p1_end = l.xn + round_up(tn, kV);
+    const int part_end = l.part + round_up(tn * l.np * (1 + d), kV);
+    l.total = p1_end > part_end ? p1_end : part_end;
     return l;
 }
 
@@ -186,152 +222,303 @@ __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
     *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
 
-template <typename Put> __device__ __forceinline__ void put_vec(const Put& put, int e, float4 v) {
-    put(e, v.x); put(e + 1, v.y); put(e + 2, v.z); put(e + 3, v.w);
-}
-template <typename Put> __device__ __forceinline__ void put_vec(const Put& put, int e, double2 v) {
-    put(e, v.x); put(e + 1, v.y);
+// ---- asynchronous copies (cp.async) ----
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (kBytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(kBytes)
+                     : "memory");
+    }
 }
 
-// One source of the staging pass: `count` elements at `src`, stored
-// through put(element, value), or as 16-byte vectors at `flat` where the
-// shared layout is the source's own; `vecs` of them are loaded as 16-byte
-// vectors (none when src is not 16-byte aligned).
-template <typename T, typename Put>
-struct Source {
-    const T* src;
-    T* flat;
-    int count, vecs;
-    Put put;
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Calls f(i, q, r) for the i = threadIdx.x, threadIdx.x + kThreads, ...
+// below count, with q = i / cols and r = i % cols kept by additions (one
+// division a thread, not one a call).
+template <typename F>
+__device__ __forceinline__ void for_each_2d(int count, int cols, F f) {
+    int i = threadIdx.x, q = i / cols, r = i - q * cols;
+    const int dq = kThreads / cols, dr = kThreads - dq * cols;
+    for (; i < count; i += kThreads) {
+        f(i, q, r);
+        q += dq;
+        r += dr;
+        if (r >= cols) {
+            r -= cols;
+            ++q;
+        }
+    }
+}
+
+// `rows` rows of `cols` contiguous elements of src (row stride cols) to
+// shared rows dst + r * ld: 16-byte copies where src and dst are 16-byte
+// aligned and cols and ld multiples of the vector, else one element a
+// copy. With `transposed`, element (r, c) goes to dst[c * ld + r] instead
+// (one element a copy).
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int rows, int cols,
+                                          bool transposed = false) {
+    constexpr int kV = 16 / sizeof(T);
+    if (rows * cols == 0) return;
+    if (!transposed && cols % kV == 0 && ld % kV == 0 &&
+        reinterpret_cast<uintptr_t>(src) % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        const int vecs = cols / kV;
+        for_each_2d(rows * vecs, vecs, [&](int, int r, int c) {
+            cp_async<16>(dst + r * ld + c * kV, src + r * cols + c * kV);
+        });
+    } else {
+        for_each_2d(rows * cols, cols, [&](int i, int r, int c) {
+            cp_async<sizeof(T)>(dst + (transposed ? c * ld + r : r * ld + c), src + i);
+        });
+    }
+}
+
+// ---- tensor-core products ----
+
+// A TF32 value of v (to nearest, ties away from zero): add half a TF32
+// unit to the bits, then clear the 13 low bits.
+__device__ __forceinline__ uint32_t tf32_near(float v) {
+    return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// The split of an A operand (kmn): v ~ hi + lo, both TF32 to nearest;
+// |v - hi - lo| <= 2^-23 |v|.
+__device__ __forceinline__ void split_a(float v, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_near(v);
+    lo = tf32_near(v - __uint_as_float(hi));
+}
+
+// The split of a B operand ([kinv | alpha]): hi as for A, lo = v - hi
+// exactly in f32, of which the tensor core takes the top 19 bits (TF32);
+// |v - hi - lo| < 2^-21 |v|.
+__device__ __forceinline__ void split_b(float v, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_near(v);
+    lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a @ b on one m16n8k8 tile (TF32 operands, f32 sum).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a @ b on one m8n8k4 tile (f64).
+__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+        : "+d"(c[0]), "+d"(c[1])
+        : "d"(a), "d"(b));
+}
+
+// The product's operands and outputs, for one block.
+template <typename T>
+struct Product {
+    const T* kmn;   // A [rows, kp] (ld ldk), zero in columns m .. kp
+    const T* kb;    // B [m, m + d] (ld ldb): kinv | alpha
+    const T* varq;  // [d, m]
+    T* part;        // [rows, np, 1 + d]: per 16 columns of w, a row's qf and variance sums
+    T* mean;        // [rows, d] in device memory, from the block's first row
+    T* w;           // [rows, m] in device memory (with residuals), from the block's first row
+    int rows, m, d, kp, ldk, ldb, np;
 };
 
-template <typename T> struct Identity { using type = T; };
-
-template <typename T, typename Put>
-__device__ __forceinline__ Source<T, Put> source(const T* src, int count,
-                                                 typename Identity<T>::type* flat, Put put) {
-    constexpr int kV = 16 / sizeof(T);
-    return {src, flat, count, reinterpret_cast<uintptr_t>(src) % 16 == 0 ? count / kV : 0, put};
-}
-
-template <typename T, typename Put, typename V>
-__device__ __forceinline__ void store_vec(const Source<T, Put>& s, int i, V v) {
-    if (s.flat != nullptr) {
-        reinterpret_cast<V*>(s.flat)[i] = v;
-    } else {
-        put_vec(s.put, i * (int)(16 / sizeof(T)), v);
+// Reduce kP values over the 4 lanes of a quad (lanes 4g .. 4g + 3) as a
+// two-level reduce-scatter: lane t ends with the sums of values
+// [(t / 2) kP / 2 + (t % 2) kP / 4, + kP / 4) in v[0 .. kP / 4), with
+// 3 kP / 4 shuffles in all.
+template <int kP, typename T>
+__device__ __forceinline__ void quad_scatter(T (&v)[kP], int t) {
+    constexpr int kH = kP / 2, kQ = kP / 4;
+    const bool up2 = (t & 2) != 0, up1 = (t & 1) != 0;
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+        const T send = up2 ? v[i] : v[i + kH];
+        v[i] = (up2 ? v[i + kH] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+        const T send = up1 ? v[i] : v[i + kQ];
+        v[i] = (up1 ? v[i + kQ] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 1);
     }
 }
 
-// The elements of a source that were not loaded as vectors.
-template <typename T, typename Put>
-__device__ __forceinline__ void stage_tail(const Source<T, Put>& s) {
-    constexpr int kV = 16 / sizeof(T);
-    for (int i = s.vecs * kV + threadIdx.x; i < s.count; i += kThreads) s.put(i, __ldg(s.src + i));
-}
-
-// Stage five sources into shared memory in one pass over the 16-byte
-// vectors of all of them: each thread issues up to kBatch loads before
-// it stores any, so that the pass waits on device memory about once,
-// not once per source. The scalar tails follow.
-template <typename T, typename P0, typename P1, typename P2, typename P3, typename P4>
-__device__ __forceinline__ void stage(const Source<T, P0>& s0, const Source<T, P1>& s1,
-                                      const Source<T, P2>& s2, const Source<T, P3>& s3,
-                                      const Source<T, P4>& s4) {
-    using V = typename Vec<T>::type;
-    constexpr int kBatch = 12;
-    const int e0 = s0.vecs, e1 = e0 + s1.vecs, e2 = e1 + s2.vecs, e3 = e2 + s3.vecs,
-              e4 = e3 + s4.vecs;
-    for (int i0 = threadIdx.x; i0 < e4; i0 += kBatch * kThreads) {
-        V v[kBatch];
+// The epilogue of one work item: kRows rows a lane (g, and g + 8 with
+// two), two 8-column tiles, and in each the columns 2t, 2t + 1 (acc[j]
+// holds them row by row). Writes the sums out as w (with residuals) or
+// mean, and, for the item's 16 columns of w, each row's partial qf (sum
+// of kmn * w) and variance sums (of w^2 * var_q) to p.part, taken 4
+// values at a time over the 4 lanes of the row. Every lane of the warp
+// calls it; rows past the tile write nothing.
+template <bool kResiduals, int kRows, typename T>
+__device__ __forceinline__ void item_epilogue(const Product<T>& p, int r0, int n0, int lane,
+                                              const T (&acc)[2][2 * kRows]) {
+    const int g = lane >> 2, t = lane & 3;
+    // the lane's 4 columns e = (tile j, column q) = (e / 2, e % 2)
+    int cols[4];
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-            const int i = i0 + u * kThreads;
-            if (i < e4) {
-                const V* p = i < e0   ? reinterpret_cast<const V*>(s0.src) + i
-                             : i < e1 ? reinterpret_cast<const V*>(s1.src) + (i - e0)
-                             : i < e2 ? reinterpret_cast<const V*>(s2.src) + (i - e1)
-                             : i < e3 ? reinterpret_cast<const V*>(s3.src) + (i - e2)
-                                      : reinterpret_cast<const V*>(s4.src) + (i - e3);
-                v[u] = __ldg(p);
+    for (int e = 0; e < 4; ++e) cols[e] = n0 + (e >> 1) * kTileN + 2 * t + (e & 1);
+    if (p.d > 0 && n0 < p.m) {  // the same for the whole warp
+        // w and kmn at the lane's columns, zero past m
+        T wv[kRows][4], kv[kRows][4];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+            const T* krow = p.kmn + min(r0 + g + 8 * i, p.rows - 1) * p.ldk;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool in = cols[e] < p.m;
+                wv[i][e] = in ? acc[e >> 1][2 * i + (e & 1)] : T(0);
+                kv[i][e] = in ? krow[cols[e]] : T(0);
             }
         }
+        constexpr int kP = 4 * kRows;
+        for (int c0 = 0; c0 <= p.d; c0 += 4) {  // values c0 .. c0 + 4 of qf, var[0], var[1], ...
+            T v[kP];
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-            const int i = i0 + u * kThreads;
-            if (i < e0) store_vec(s0, i, v[u]);
-            else if (i < e1) store_vec(s1, i - e0, v[u]);
-            else if (i < e2) store_vec(s2, i - e1, v[u]);
-            else if (i < e3) store_vec(s3, i - e2, v[u]);
-            else if (i < e4) store_vec(s4, i - e3, v[u]);
+            for (int u = 0; u < 4; ++u) {
+                const int value = c0 + u;
+                T vq[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    vq[e] = value >= 1 && value <= p.d && cols[e] < p.m
+                                ? p.varq[(value - 1) * p.m + cols[e]] : T(0);
+                }
+#pragma unroll
+                for (int i = 0; i < kRows; ++i) {
+                    T s = value == 0 ? kv[i][0] * wv[i][0] : wv[i][0] * wv[i][0] * vq[0];
+#pragma unroll
+                    for (int e = 1; e < 4; ++e) {
+                        s = value == 0 ? fma_t(kv[i][e], wv[i][e], s)
+                                       : fma_t(wv[i][e] * wv[i][e], vq[e], s);
+                    }
+                    v[4 * i + u] = s;
+                }
+            }
+            quad_scatter(v, t);
+#pragma unroll
+            for (int e = 0; e < kRows; ++e) {
+                const int idx = (t >> 1) * (kP / 2) + (t & 1) * (kP / 4) + e;
+                const int r = r0 + g + 8 * (idx / 4), value = c0 + idx % 4;
+                if (r < p.rows && value <= p.d) {
+                    p.part[(r * p.np + n0 / (2 * kTileN)) * (1 + p.d) + value] = v[e];
+                }
+            }
         }
     }
-    stage_tail(s0);
-    stage_tail(s1);
-    stage_tail(s2);
-    stage_tail(s3);
-    stage_tail(s4);
+    // the sums out: w (with residuals) or mean
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+        const int r = r0 + g + 8 * i;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const T v = acc[e >> 1][2 * i + (e & 1)];
+            if (r < p.rows && cols[e] < p.m) {
+                if (kResiduals) p.w[r * p.m + cols[e]] = v;
+            } else if (r < p.rows && cols[e] < p.m + p.d) {
+                p.mean[r * p.d + cols[e] - p.m] = v;
+            }
+        }
+    }
 }
 
-// One level of the reduce-scatter of reduce_row, then the next: the lanes whose
-// `off` bit is set keep values [kHalf, 2 kHalf) and send [0, kHalf); the
-// others keep the lower half. The kept half ends in v[0 .. kHalf).
-template <int kHalf, typename T, int kP>
-__device__ __forceinline__ void scatter(T (&v)[kP], int lane, int off) {
-    const bool upper = (lane & off) != 0;
+// One work item in float32: rows r0 .. r0 + 16 by columns n0 .. n0 +
+// 8 kNT (kNT 8-column tiles: two, or one at the right edge), 3xTF32.
+// Lane (g, t) = (lane / 4, lane % 4) holds A at rows g, g + 8 and B at
+// column g of each tile; its two k indices of a step, mma's t and t + 4,
+// are taken at k0 + 2t and k0 + 2t + 1 of both A and B (the same 8
+// products, so that A loads 2 neighbouring words); it ends with the sums
+// at rows g, g + 8 and columns 2t, 2t + 1 of each tile. Rows past the
+// tile read the tile's last row and are not written.
+template <bool kResiduals, int kNT>
+__device__ __forceinline__ void product_item(const Product<float>& p, int r0, int n0, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const int e0 = min(r0 + g, p.rows - 1) * p.ldk + 2 * t;
+    const int e1 = min(r0 + g + 8, p.rows - 1) * p.ldk + 2 * t;
+    const float* b = p.kb + 2 * t * p.ldb + n0 + g;
+    float acc[2][4] = {};
+    // one k-step into s; in the last one (`edge`), B rows past m read as
+    // zero
+    auto step = [&](int k0, bool edge, float (&s)[2][4]) {
+        const float2 x0 = *reinterpret_cast<const float2*>(p.kmn + e0 + k0);
+        const float2 x1 = *reinterpret_cast<const float2*>(p.kmn + e1 + k0);
+        uint32_t ahi[4], alo[4];
+        split_a(x0.x, ahi[0], alo[0]);
+        split_a(x1.x, ahi[1], alo[1]);
+        split_a(x0.y, ahi[2], alo[2]);
+        split_a(x1.y, ahi[3], alo[3]);
+        const float* bk = b + k0 * p.ldb;
+        const bool lo_ok = !edge || k0 + 2 * t < p.m, hi_ok = !edge || k0 + 2 * t + 1 < p.m;
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-        const T send = upper ? v[j] : v[j + kHalf];
-        const T keep = upper ? v[j + kHalf] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-    if constexpr (kHalf > 1) scatter<kHalf / 2>(v, lane, off / 2);
+        for (int j = 0; j < kNT; ++j) {
+            uint32_t bhi[2], blo[2];
+            split_b(lo_ok ? bk[j * kTileN] : 0.f, bhi[0], blo[0]);
+            split_b(hi_ok ? bk[p.ldb + j * kTileN] : 0.f, bhi[1], blo[1]);
+            mma_tf32(s[j], alo, bhi);
+            mma_tf32(s[j], ahi, blo);
+            mma_tf32(s[j], ahi, bhi);
+        }
+    };
+    // the tensor core sums each k-step from zero; the sums are added to
+    // acc in registers, in k order
+    auto step_add = [&](int k0, bool edge) {
+        float s[2][4] = {};
+        step(k0, edge, s);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] += s[j][i];
+        }
+    };
+    const int full = p.m / 8 * 8;
+    int k0 = 0;
+#pragma unroll 2
+    for (; k0 < full; k0 += 8) step_add(k0, false);
+    if (k0 < p.kp) step_add(k0, true);
+    item_epilogue<kResiduals, 2>(p, r0, n0, lane, acc);
 }
 
-// Phase 3 for one row and kD output columns. One pass over the row
-// gives each lane its partial sums of the 1 + 2*kD values (qf, the kD
-// mean columns, the kD variance columns), padded to kP, a power of two.
-// One shuffle tree then reduces them together: at each of its first
-// log2(kP) levels every lane sends half of its values to its partner and
-// keeps the other half (kP - 1 shuffles in all, not one tree of 5 per
-// value), so that each lane ends with one value, whose index is its lane
-// number's top log2(kP) bits; the last 5 - log2(kP) levels finish the sum.
-// The lanes that hold a mean or variance column write it. `first` (the
-// first group of columns) also sets `base` and, with residuals, writes
-// the row of kmn and w.
-template <int kD, bool kResiduals, typename T>
-__device__ __forceinline__ void reduce_row(const T* krow, const T* wrow, const T* al,
-                                           const T* vq, int m, bool first, T kvar, T& base,
-                                           T* mean_row, T* var_row, T* kmn_row, T* w_row,
-                                           int lane) {
-    constexpr int kN = 1 + 2 * kD;
-    constexpr int kP = kN <= 4 ? 4 : kN <= 8 ? 8 : 16;
-    constexpr int kLanes = 32 / kP;  // lanes that end with the same value
-    T v[kP] = {};  // qf, mean[kD], vq[kD], zero padding
-    for (int k = lane; k < m; k += 32) {
-        const T kk = krow[k], ww = wrow[k];
-        if (kResiduals && first) {
-            kmn_row[k] = kk;
-            w_row[k] = ww;
-        }
-        v[0] = fma_t(kk, ww, v[0]);
-        const T w2 = ww * ww;
+// One work item in float64: rows r0 .. r0 + 8 by columns n0 .. n0 +
+// 8 kNT (kNT 8-column tiles), DMMA. Lane (g, t) holds A at row g and
+// column t of each k-step, B at row t and column g of each tile, and
+// ends with the sums at row g and columns 2t, 2t + 1 of each tile.
+template <bool kResiduals, int kNT>
+__device__ __forceinline__ void product_item(const Product<double>& p, int r0, int n0, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const double* a = p.kmn + min(r0 + g, p.rows - 1) * p.ldk + t;
+    const double* b = p.kb + t * p.ldb + n0 + g;
+    double acc[2][2] = {};
+    auto step = [&](int k0, bool edge) {
+        const double av = a[k0];
+        const bool ok = !edge || k0 + t < p.m;
+        const double* bk = b + k0 * p.ldb;
 #pragma unroll
-        for (int c = 0; c < kD; ++c) {
-            v[1 + c] = fma_t(kk, al[c * m + k], v[1 + c]);
-            v[1 + kD + c] = fma_t(w2, vq[c * m + k], v[1 + kD + c]);
+        for (int j = 0; j < kNT; ++j) {
+            double s[2] = {0.0, 0.0};
+            mma_f64(s, av, ok ? bk[j * kTileN] : 0.0);
+            acc[j][0] += s[0];
+            acc[j][1] += s[1];
         }
-    }
-    scatter<kP / 2>(v, lane, 16);
-#pragma unroll
-    for (int off = kLanes / 2; off >= 1; off /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-    const T qf = __shfl_sync(0xffffffffu, v[0], 0);  // index 0 is on lanes 0 .. kLanes - 1
-    if (first) base = kvar - qf > T(0) ? kvar - qf : T(0);
-    const int idx = lane / kLanes;
-    if (lane % kLanes == 0) {
-        if (idx >= 1 && idx <= kD) mean_row[idx - 1] = v[0];
-        else if (idx > kD && idx <= 2 * kD) var_row[idx - kD - 1] = base + v[0];
-    }
+    };
+    const int full = p.m / 4 * 4;
+    int k0 = 0;
+#pragma unroll 4
+    for (; k0 < full; k0 += 4) step(k0, false);
+    if (k0 < p.kp) step(k0, true);
+    item_epilogue<kResiduals, 1>(p, r0, n0, lane, acc);
 }
 
 template <typename T, bool kResiduals>
@@ -345,17 +532,16 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* smem = reinterpret_cast<T*>(smem_raw);
     const Layout L = layout<T>(m, di, d, tn);
-    T* s_zs = smem + L.zs;        // [di, mp] (transposed)
-    T* s_zn = smem + L.zn;        // [mp]
-    T* s_ils = smem + L.ils;      // [di]
-    T* s_alpha = smem + L.alpha;  // [d, m] (transposed)
-    T* s_varq = smem + L.varq;    // [d, m] (transposed)
-    T* s_kinv = smem + L.kinv;    // [mp, mp], zero beyond m
-    T* s_xs = smem + L.xs;        // [di, tn] (transposed)
-    T* s_xn = smem + L.xn;        // [tn]
-    T* s_kmn = smem + L.kmn;      // [tn, ldm], zero beyond rows x m
-    T* s_w = smem + L.w;          // [tn, ldm]
-    const int mp = L.mp, ldm = L.ldm;
+    T* s_kb = smem + L.kb;      // [m, ldb]: kinv | alpha
+    T* s_kmn = smem + L.kmn;    // [tn, ldk], zero in columns m .. kp
+    T* s_varq = smem + L.varq;  // [d, m] (transposed)
+    T* s_zs = smem + L.zs;      // [di, kp] (transposed)
+    T* s_zn = smem + L.zn;      // [kp]
+    T* s_ils = smem + L.ils;    // [di]
+    T* s_xs = smem + L.xs;      // [di, tn] (transposed)
+    T* s_xn = smem + L.xn;      // [tn]
+    T* s_part = smem + L.part;  // [tn, np, 1 + d], over zs .. xn after phase 1
+    const int kp = L.kp;
 
     // this block's lane: every operand and output is offset by it
     const size_t lane_id = blockIdx.y;
@@ -377,28 +563,24 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
     const int row0 = blockIdx.x * tn;
     const int rows = min(tn, n - row0);
     const int warp = tid >> 5, lane = tid & 31;
-    const T kvar = *kvar_ptr;
-    const T ils = tid < di ? __ldg(inv_ls + tid) : T(0);  // in flight during staging
 
-    // ---- stage the M-side operands and the tile's rows of x (one pass),
-    // then scale x by inv_ls and take the squared norms ----
-    stage(source(zs, m * di, nullptr, [&](int e, T v) { s_zs[(e % di) * mp + e / di] = v; }),
-          source(kinv, m * m, mp == m ? s_kinv : nullptr,
-                 [&](int e, T v) { s_kinv[(e / m) * mp + e % m] = v; }),
-          source(alpha, m * d, nullptr, [&](int e, T v) { s_alpha[(e % d) * m + e / d] = v; }),
-          source(var_q, m * d, nullptr, [&](int e, T v) { s_varq[(e % d) * m + e / d] = v; }),
-          source(x + (size_t)row0 * di, rows * di, nullptr,
-                 [&](int e, T v) { s_xs[(e % di) * tn + e / di] = v; }));
-    if (tid < di) s_ils[tid] = ils;
-    for (int i = tid + kThreads; i < di; i += kThreads) s_ils[i] = __ldg(inv_ls + i);
-    for (int i = tid; i < (mp - m) * mp; i += kThreads) s_kinv[m * mp + i] = T(0);
-    for (int i = tid; i < m * (mp - m); i += kThreads) {
-        s_kinv[(i / (mp - m)) * mp + m + i % (mp - m)] = T(0);
-    }
+    // ---- staging: group 1 (phase 1's operands), group 2 (the rest) ----
+    copy_rows(s_xs, tn, x + (size_t)row0 * di, rows, di, true);
+    copy_rows(s_zs, kp, zs, m, di, true);
+    copy_rows(s_ils, di, inv_ls, 1, di);
+    cp_async_commit();
+    copy_rows(s_kb, L.ldb, kinv, m, m);
+    copy_rows(s_kb + m, L.ldb, alpha, m, d);
+    copy_rows(s_varq, m, var_q, m, d, true);
+    cp_async_commit();
+    const T kvar = *kvar_ptr;
+
+    // ---- group 1 in: scale x by inv_ls, take the squared norms ----
+    cp_async_wait<1>();
     __syncthreads();
     for (int j = tid; j < m; j += kThreads) {
         T acc = T(0);
-        for (int k = 0; k < di; ++k) acc = fma_t(s_zs[k * mp + j], s_zs[k * mp + j], acc);
+        for (int k = 0; k < di; ++k) acc = fma_t(s_zs[k * kp + j], s_zs[k * kp + j], acc);
         s_zn[j] = acc;
     }
     for (int r = tid; r < rows; r += kThreads) {
@@ -412,116 +594,90 @@ gp_predict_kernel(const T* __restrict__ x, const T* __restrict__ zs,
     }
     __syncthreads();
 
-    // ---- phase 1: kmn = kvar * exp(-0.5 * max(d2, 0)), a 4 x 4
-    // micro-tile a thread, neighbouring threads on neighbouring column
-    // groups. Zero outside rows x m (the padding that phase 2 reads):
-    // entries there read unset shared memory and are replaced by the
-    // select ----
-    const int nrg = (rows + kR - 1) / kR;  // row groups of 4
-    const int ncg = mp / kR;               // column groups of 4
-    for (int i = tid; i < nrg * ncg; i += kThreads) {
-        const int rg = i / ncg, cg = i - rg * ncg;
-        const int r0 = rg * kR, c0 = cg * kR;
-        T cross[kR][kR] = {};
-        for (int k = 0; k < di; ++k) {
-            T a[kR], b[kR];
-            load4(s_xs + k * tn + r0, a);
-            load4(s_zs + k * mp + c0, b);
+    // ---- phase 1: kmn = kvar * exp(-0.5 * max(d2, 0)), one (row, 4
+    // columns) a thread: a thread keeps its columns and steps over rows,
+    // neighbouring threads on neighbouring columns of one row. Zero in
+    // columns m .. kp (the padding that phase 2 reads): entries there
+    // read unset shared memory and are replaced by the select. With
+    // residuals the row of kmn is also written out ----
+    {
+        const int groups = kp / kR;              // 4-column groups of a row
+        const int in_flight = kThreads / groups;  // rows stepped at once
+        const int c0 = (tid % groups) * kR;
+        const bool kmn_vec = kResiduals && m % kR == 0 &&
+                             reinterpret_cast<uintptr_t>(kmn_out) % 16 == 0;
+        for (int r = tid / groups; r < rows && tid < in_flight * groups; r += in_flight) {
+            T cross[kR] = {};
+            for (int k = 0; k < di; ++k) {
+                const T a = s_xs[k * tn + r];
+                T b[kR];
+                load4(s_zs + k * kp + c0, b);
 #pragma unroll
-            for (int p = 0; p < kR; ++p) {
-#pragma unroll
-                for (int q = 0; q < kR; ++q) cross[p][q] = fma_t(a[p], b[q], cross[p][q]);
+                for (int q = 0; q < kR; ++q) cross[q] = fma_t(a, b[q], cross[q]);
             }
-        }
-        T xn[kR], zn[kR];
-        load4(s_xn + r0, xn);
-        load4(s_zn + c0, zn);
-#pragma unroll
-        for (int p = 0; p < kR; ++p) {
+            T zn[kR];
+            load4(s_zn + c0, zn);
+            const T xn = s_xn[r];
             T out[kR];
 #pragma unroll
             for (int q = 0; q < kR; ++q) {
-                T d2 = xn[p] - T(2) * cross[p][q] + zn[q];
+                T d2 = xn - T(2) * cross[q] + zn[q];
                 d2 = d2 > T(0) ? d2 : T(0);
                 const T kv = kvar * exp_t(T(-0.5) * d2);
-                out[q] = r0 + p < rows && c0 + q < m ? kv : T(0);
+                out[q] = c0 + q < m ? kv : T(0);
             }
-            store4(s_kmn + (r0 + p) * ldm + c0, out);
-        }
-    }
-    __syncthreads();
-
-    // ---- phase 2: w = kmn @ kinv, a 4 x 4 micro-tile a thread in
-    // registers; per 4 steps of k, 8 16-byte loads (4 rows of kmn, 4 rows
-    // of kinv) feed 64 FMAs. Neighbouring threads take neighbouring
-    // column groups: their kinv loads are contiguous, their kmn loads
-    // broadcast ----
-    for (int i = tid; i < nrg * ncg; i += kThreads) {
-        const int rg = i / ncg, cg = i - rg * ncg;
-        const T* a_ptr = s_kmn + rg * kR * ldm;
-        const T* b_ptr = s_kinv + cg * kR;
-        T acc[kR][kR] = {};
-        for (int k = 0; k < mp; k += kR) {
-            T a[kR][kR], b[kR][kR];
+            store4(s_kmn + r * L.ldk + c0, out);
+            if (kResiduals) {
+                T* dst = kmn_out + (size_t)(row0 + r) * m + c0;
+                if (kmn_vec && c0 < m) {
+                    store4(dst, out);
+                } else if (!kmn_vec) {
 #pragma unroll
-            for (int p = 0; p < kR; ++p) load4(a_ptr + p * ldm + k, a[p]);
-#pragma unroll
-            for (int u = 0; u < kR; ++u) load4(b_ptr + (k + u) * mp, b[u]);
-#pragma unroll
-            for (int u = 0; u < kR; ++u) {
-#pragma unroll
-                for (int p = 0; p < kR; ++p) {
-#pragma unroll
-                    for (int q = 0; q < kR; ++q) acc[p][q] = fma_t(a[p][u], b[u][q], acc[p][q]);
+                    for (int q = 0; q < kR; ++q) {
+                        if (c0 + q < m) dst[q] = out[q];
+                    }
                 }
             }
         }
-#pragma unroll
-        for (int p = 0; p < kR; ++p) store4(s_w + (rg * kR + p) * ldm + cg * kR, acc[p]);
+    }
+
+    // ---- group 2 in: phase 2, [w | mean] = kmn @ [kinv | alpha] on the
+    // tensor cores, an item (one mma row tile by two column tiles) a
+    // warp in turn, each item writing its w and mean and its rows'
+    // partial qf and variance sums ----
+    cp_async_wait<0>();
+    __syncthreads();
+    {
+        constexpr int kM = Mma<T>::kM;
+        const Product<T> p{s_kmn, s_kb, s_varq, s_part, mean_out + (size_t)row0 * d,
+                           kResiduals ? w_out + (size_t)row0 * m : nullptr,
+                           rows, m, d, kp, L.ldk, L.ldb, L.np};
+        const int pairs = (m + d + 2 * kTileN - 1) / (2 * kTileN);
+        const int items = (rows + kM - 1) / kM * pairs;
+        for (int i = warp; i < items; i += kWarps) {
+            const int mi = i / pairs, n0 = (i - mi * pairs) * 2 * kTileN;
+            if (n0 + kTileN < m + d) {
+                product_item<kResiduals, 2>(p, mi * kM, n0, lane);
+            } else {  // the last pair has one tile
+                product_item<kResiduals, 1>(p, mi * kM, n0, lane);
+            }
+        }
     }
     __syncthreads();
 
-    // ---- phase 3: one warp per row (reduce_row), kMaxD output columns
-    // at a time ----
-    for (int r = warp; r < rows; r += kWarps) {
-        const T* krow = s_kmn + r * ldm;
-        const T* wrow = s_w + r * ldm;
-        T* mean_row = mean_out + (size_t)(row0 + r) * d;
-        T* var_row = var_out + (size_t)(row0 + r) * d;
-        T* kmn_row = kResiduals ? kmn_out + (size_t)(row0 + r) * m : nullptr;
-        T* w_row = kResiduals ? w_out + (size_t)(row0 + r) * m : nullptr;
-        T base = T(0);
-        for (int c0 = 0; c0 < d; c0 += kMaxD) {
-            const T* al = s_alpha + c0 * m;
-            const T* vq = s_varq + c0 * m;
-            const bool first = c0 == 0;
-            switch (min(kMaxD, d - c0)) {
-                case 1:
-                    reduce_row<1, kResiduals>(krow, wrow, al, vq, m, first, kvar, base,
-                                              mean_row + c0, var_row + c0, kmn_row, w_row, lane);
-                    break;
-                case 2:
-                    reduce_row<2, kResiduals>(krow, wrow, al, vq, m, first, kvar, base,
-                                              mean_row + c0, var_row + c0, kmn_row, w_row, lane);
-                    break;
-                case 3:
-                    reduce_row<3, kResiduals>(krow, wrow, al, vq, m, first, kvar, base,
-                                              mean_row + c0, var_row + c0, kmn_row, w_row, lane);
-                    break;
-                default:
-                    reduce_row<4, kResiduals>(krow, wrow, al, vq, m, first, kvar, base,
-                                              mean_row + c0, var_row + c0, kmn_row, w_row, lane);
-                    break;
+    // ---- phase 3: var = max(kvar - qf, 0) + (w*w) @ var_q from the
+    // partial sums, a (row, column) a thread, the 16-column groups in
+    // order ----
+    if (d > 0) {
+        for_each_2d(rows * d, d, [&](int, int r, int c) {
+            const T* part = s_part + r * L.np * (1 + d);
+            T qf = T(0), v = T(0);
+            for (int k = 0; k < L.np; ++k) {
+                qf += part[k * (1 + d)];
+                v += part[k * (1 + d) + 1 + c];
             }
-        }
-        if (kResiduals && d == 0) {
-            // no output column, so reduce_row did not run: write the
-            // residual rows here
-            for (int k = lane; k < m; k += 32) {
-                kmn_row[k] = krow[k];
-                w_row[k] = wrow[k];
-            }
-        }
+            var_out[(size_t)(row0 + r) * d + c] = (kvar - qf > T(0) ? kvar - qf : T(0)) + v;
+        });
     }
 }
 

@@ -347,7 +347,11 @@ class CBFSSM(BaseSSM):
         per_seq = lam1 * (loglik - kl_x) + lam2 * entropy
         particle_sum = torch.dot(per_seq, weights)
         global_term = -kl_zf - kl_zb
-        elbo = particle_sum / self.samples + global_term
+        # divided by a tensor, as parallel.mesh_loss divides the summed
+        # terms: on the card, division by a Python number is a product with
+        # its reciprocal, which can differ from it in the last bit
+        divisor = torch.full((), float(self.samples), **kw)
+        elbo = particle_sum / divisor + global_term
         aux = {
             "loglik": torch.dot(loglik, weights),
             "kl_x": torch.dot(kl_x, weights),
@@ -355,7 +359,7 @@ class CBFSSM(BaseSSM):
             "kl_z_f": kl_zf,
             "kl_z_b": kl_zb,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.full((), float(self.samples), **kw),
+            "particle_divisor": divisor,
             "global_term": global_term,
         }
         return -elbo, aux

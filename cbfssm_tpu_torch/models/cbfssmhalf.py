@@ -121,14 +121,15 @@ class CBFSSMHALF(RecognitionSSM):
         kl_zf = gp.prior_kl(params.gp_f, cache_f)
         particle_sum = lam1 * torch.dot(loglik - kl_x, weights)
         global_term = -kl_zf
-        elbo = particle_sum / self.samples + global_term
+        # divided by a tensor, as parallel.mesh_loss divides (see CBFSSM.loss)
+        divisor = torch.full((), float(self.samples), dtype=self.dtype, device=self.device)
+        elbo = particle_sum / divisor + global_term
         aux = {
             "loglik": torch.dot(loglik, weights),
             "kl_x": torch.dot(kl_x, weights),
             "kl_z_f": kl_zf,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.full((), float(self.samples), dtype=self.dtype,
-                                             device=self.device),
+            "particle_divisor": divisor,
             "global_term": global_term,
         }
         return -elbo, aux

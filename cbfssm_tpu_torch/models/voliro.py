@@ -412,7 +412,9 @@ class Voliro(BaseSSM):
         per_seq = lam[0] * (loglik - kl_x) + lam[1] * entropy
         particle_sum = torch.dot(per_seq, weights)
         global_term = lam[2] * (n_reg + l_reg) - kl_zf - kl_zb
-        elbo = particle_sum / self.samples + global_term
+        # divided by a tensor, as parallel.mesh_loss divides (see CBFSSM.loss)
+        divisor = torch.full((), float(self.samples), **kw)
+        elbo = particle_sum / divisor + global_term
         aux = {
             "loglik": torch.dot(loglik, weights),
             "kl_x": torch.dot(kl_x, weights),
@@ -422,7 +424,7 @@ class Voliro(BaseSSM):
             "n_reg": n_reg,
             "l_reg": l_reg,
             "particle_sum": particle_sum,
-            "particle_divisor": torch.full((), float(self.samples), **kw),
+            "particle_divisor": divisor,
             "global_term": global_term,
         }
         return -elbo, aux

@@ -13,12 +13,14 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    DI = 6, D = 4 and D = 2 in both dtypes, and at the (DI, D) of the
    Voliro and Sarcos GPs (12, 3), (19, 6), (21, 7), (21, 14);
 3. kernel: ``gp_predict`` against its plain torch version at the two
-   RoboMove shapes and a ragged one, in float32 (rtol 2e-5, atol 1e-5)
+   RoboMove shapes of a B = 32 step, the two of a B = 1 request (N 400
+   D 2, N 50 D 4) and a ragged one, in float32 (rtol 2e-5, atol 1e-5)
    and float64 (rtol 1e-10, atol 1e-12); times: the kernel's device time
    per launch (a CUDA graph of 20 back-to-back launches replayed 10
-   times, ``kernel_timing.graph_replay_ms``) at the two RoboMove shapes,
-   and 50 eager back-to-back calls of the kernel and of the plain
-   version (host issue included);
+   times, ``kernel_timing.graph_replay_ms``) at the four RoboMove
+   shapes, each beside its bound and its share of it, and 50 eager
+   back-to-back calls of the kernel and of the plain version (host
+   issue included);
 3b. residual kernel and gradient: ``gp_predict_residuals`` against
    ``fused_predict_residuals_plain`` (mean, var, kmn, w) at the same
    shapes and tolerances, timed the same way; and in float64 the gradients
@@ -53,7 +55,8 @@ imports nothing of JAX. Phases, in order; any failure exits non-zero:
    epoch and one more epoch under ``'solve_free'`` (B = 32, float32),
    and one further step of each under ``torch.profiler`` (here through
    the port's ``utils.profiling.trace``): device kernels, their summed
-   time, the busy share and the largest kernels. Then the hand adjoint:
+   time, the busy share, the largest kernels and the summed time and
+   launches of the residual and the value kernel. Then the hand adjoint:
    one float32 epoch with ``adjoint='hand'``, ``gp_impl='solve_free'``
    (no kernel of the four launches), whose first step's loss must equal
    the solve_free autodiff epoch's bitwise; on one batch the loss
@@ -299,7 +302,8 @@ is the card, and the line before that lists the kernels with their
 checks and times: ``ms`` is the graph-replayed device time at the
 recognition shape (float32, N = 12,800), ``ms_n1600`` the same at the
 forward shape (N = 1,600), each beside its bound (``bound_ms``,
-``bound_ms_n1600``); ``eager_ms`` is the back-to-back figure,
+``bound_ms_n1600``); ``serving_b1`` has the same at the B = 1 shapes
+(N = 400, N = 50); ``eager_ms`` is the back-to-back figure,
 ``device_ms_f64`` has the same device times in float64,
 ``model_shapes`` the figures of phase 7's four shapes, and for
 ``gp_predict`` ``ms_n51200`` / ``bound_ms_n51200`` the 1,024-session
@@ -332,9 +336,13 @@ DEVICE = "cuda"
 SHAPES = {
     "recognition N=12800 M=100 DI=6 D=2": (12800, 100, 6, 2),
     "forward N=1600 M=100 DI=6 D=4": (1600, 100, 6, 4),
+    "serving B=1 recognition N=400 M=100 DI=6 D=2": (400, 100, 6, 2),
+    "serving B=1 forward N=50 M=100 DI=6 D=4": (50, 100, 6, 4),
     "ragged N=37 M=11 DI=5 D=3": (37, 11, 5, 3),
 }
-TIMED_N = (12800, 1600)  # the RoboMove shapes, timed by graph replay
+# the RoboMove shapes of a B = 32 step and of a B = 1 request, timed by
+# graph replay
+TIMED_N = (12800, 1600, 400, 50)
 # (DI, D) of the Voliro force and recognition GPs and the Sarcos
 # recognition and forward GPs
 MODEL_WIDTHS = ((12, 3), (19, 6), (21, 7), (21, 14))
@@ -428,19 +436,22 @@ def read_launches(where: str, want, rule: str) -> tuple:
 
 def bound(n, m, di, d, dtype: str, residuals: bool):
     """(ms, 'operations' | 'bytes'): the least time the card could take
-    for one predict. Operations per row: the cross-Gram 2*M*DI, the
-    M-long epilogues (~9 M), w = kmn @ kinv 2*M^2, mean and the variance
-    product 4*M*D; bytes: each input read once, each output written
-    once (with residuals also kmn and w, [N, M] each), over the card's
-    peaks (``kernel_timing.PEAK_FLOPS``, ``PEAK_BYTES``)."""
-    from cbfssm_tpu_torch.utils.kernel_timing import PEAK_BYTES, PEAK_FLOPS
+    for one predict. Operations per row: the product [w | mean] = kmn @
+    [kinv | alpha], 2*M*(M + D), at the tensor-core rate of the type
+    (``kernel_timing.PEAK_TC``: DMMA, 3xTF32), and at the CUDA-core rate
+    (``PEAK_FLOPS``) the cross-Gram 2*M*DI, the M-long epilogues (~9 M)
+    and the variance product 2*M*D, the two times summed; bytes: each
+    input read once, each output written once (with residuals also kmn
+    and w, [N, M] each), over ``PEAK_BYTES``."""
+    from cbfssm_tpu_torch.utils.kernel_timing import PEAK_BYTES, PEAK_FLOPS, PEAK_TC
 
     itemsize = 4 if dtype == "float32" else 8
-    ops = n * (2 * m * m + 2 * m * di + 4 * m * d + 9 * m + 3 * di)
+    tc_ops = n * 2 * m * (m + d)
+    ops = n * (2 * m * di + 2 * m * d + 9 * m + 3 * di)
     elems = n * di + m * di + di + 1 + m * m + 2 * m * d + 2 * n * d
     if residuals:
         elems += 2 * n * m
-    t_ops = ops / PEAK_FLOPS[dtype]
+    t_ops = tc_ops / PEAK_TC[dtype] + ops / PEAK_FLOPS[dtype]
     t_bytes = elems * itemsize / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -534,8 +545,18 @@ def phase_kernel():
             dev_ms = graph_replay_ms(lambda: fp.fused_predict(*args)) if n in TIMED_N else None
             times[(dtype, n)] = (dev_ms, k_ms, p_ms)
             print(f"kernel {str(dtype)[6:]} {label}: ok; device {fmt_ms(dev_ms)} (graph "
-                  f"replay), eager kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+                  f"replay{bound_share(n, m, di, d, dtype, False, dev_ms)}), eager kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
     return max_err, times
+
+
+def bound_share(n, m, di, d, dtype, residuals: bool, dev_ms) -> str:
+    """', bound B ms (bytes | operations), S % of it' for a timed
+    predict, else ''."""
+    if dev_ms is None:
+        return ""
+    b_ms, by = bound(n, m, di, d, str(dtype)[6:], residuals)
+    return f", bound {b_ms:.5f} ms ({by}), {100 * b_ms / dev_ms:.1f} % of it"
 
 
 def phase_residual_kernel():
@@ -571,8 +592,8 @@ def phase_residual_kernel():
                       if n in TIMED_N else None)
             times[(dtype, n)] = (dev_ms, k_ms, p_ms)
             print(f"residual kernel {str(dtype)[6:]} {label}: ok; device {fmt_ms(dev_ms)} "
-                  f"(graph replay), eager kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms",
-                  flush=True)
+                  f"(graph replay{bound_share(n, m, di, d, dtype, True, dev_ms)}), eager "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
             if dtype != torch.float64:
                 continue
             leaves = [a.clone().requires_grad_(True) for a in args]
@@ -805,6 +826,12 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
     busy_ms = sum(v[1] for v in by_name.values())
     print(f"profile {label}: device kernel time {busy_ms:.2f} ms in {len(kernels)} kernels; "
           f"busy share of the median step {100 * busy_ms / step_ms:.1f} %; {card}", flush=True)
+    # the fused GP-predict kernels' share: gp_predict_kernel<T, true> is
+    # the residual kernel, <T, false> the value kernel
+    for kind, tag in (("residual", ", true>"), ("value", ", false>")):
+        hits = [v for name, v in by_name.items() if "gp_predict_kernel<" in name and tag in name]
+        print(f"  gp_predict {kind} kernel in the step: {sum(v[1] for v in hits):.3f} ms in "
+              f"{sum(v[0] for v in hits)} launches", flush=True)
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {ms:9.3f} ms  {count:6d} x  {name[:110]}", flush=True)
     return len(kernels), busy_ms
@@ -4665,6 +4692,9 @@ def main() -> None:
             "bound_ms_n1600": bound2_ms,
             "bound_by_n1600": bound2_by,
             "shape_n1600": f"float32 N={n2} M={m2} DI={di2} D={d2}",
+            "serving_b1": {f"N={nb}": dict(zip(("ms", "bound_ms", "bound_by"), (
+                t[(torch.float32, nb)][0], *bound(nb, mb, dib, db, "float32", residuals))))
+                for label, (nb, mb, dib, db) in SHAPES.items() if label.startswith("serving")},
             "eager_ms": k_ms,
             "device_ms_f64": {f"N={nn}": t[(torch.float64, nn)][0] for nn in TIMED_N},
             "model_shapes": model_kernels[name],

@@ -451,3 +451,26 @@ def test_particle_parallel_equals_its_serial_emulation(device, tmp_path):
                                                            spec, tmp_path):
         np.testing.assert_allclose(loss, serial, rtol=RTOL_MESH)
         assert_leaves_close(grads, serial_grads, rtol=RTOL_MESH, atol=1e-14)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_loss_value_is_the_mesh_loss_formula(device):
+    """The loss a model returns is -(particle_sum / particle_divisor +
+    global_term) of its aux bit for bit: the value ``mesh_loss`` forms
+    from the summed terms, so a one-rank mesh reports the unmeshed loss.
+    On the card a division by a Python number is a product with its
+    reciprocal, which differed from the division in the last bit of a
+    one-rank NCCL run's loss (ROADMAP C12); it does so for ~13 % of
+    values at 50 particles (not a power of two), so the card takes 64
+    draws, the CPU (which divides) 4."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    model = CBFSSM(smoke_config(samples=50), device=device)
+    arrays = smoke_arrays()
+    u, y = (torch.tensor(arrays[k][:8], dtype=torch.float64, device=device)
+            for k in ("train_in_batch", "train_out_batch"))
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    for seed in range(64 if device == "cuda" else 4):
+        loss, aux = model.loss(params, u, y, torch.Generator(device=device).manual_seed(seed))
+        value = -(aux["particle_sum"] / aux["particle_divisor"] + aux["global_term"])
+        assert torch.equal(loss, value), seed

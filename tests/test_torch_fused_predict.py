@@ -24,7 +24,8 @@ import torch
 from cbfssm_tpu_torch.ops import _build
 from cbfssm_tpu_torch.ops import fused_predict as fp
 from cbfssm_tpu_torch.utils.kernel_timing import (FILTER_SHAPES, KERNEL_SHAPES, MODEL_SHAPES,
-                                                   clamp_kernel_inputs, kernel_inputs)
+                                                   clamp_kernel_inputs, ill_conditioned_inputs,
+                                                   kernel_inputs)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -342,6 +343,30 @@ def test_cuda_inducing_point_cap(cuda_device, dtype):
     with pytest.raises(ValueError, match=match):
         fp.fused_predict_residuals(*over)
     assert (fp.fused_predict.launches, fp.fused_predict_residuals.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", [False, True])
+def test_cuda_float32_kernel_on_ill_conditioned_kinv(cuda_device, residuals):
+    """kinv the inverse of the jittered RBF Gram of 100 inducing points
+    (jitter 1e-6, condition number ~8.2e4, entries up to ~1.1e3): w =
+    kmn @ kinv cancels terms far larger than itself. The float32
+    kernel's largest error in mean, var and w against the float64 plain
+    version on the same (float32) operands is within 2x of the float32
+    plain version's (its products are 3xTF32 on the tensor cores)."""
+    args, cond = ill_conditioned_inputs(torch.float32, cuda_device)
+    assert 5e4 < cond < 5e5
+    kernel = fp.fused_predict_residuals if residuals else fp._fused_predict_value
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    mean, var, (_, _, w) = fp.fused_predict_residuals_plain(*(a.double() for a in args))
+    plain_mean, plain_var, (_, _, plain_w) = fp.fused_predict_residuals_plain(*args)
+    names = ("mean", "var", "w") if residuals else ("mean", "var")
+    outs = (got[0], got[1], got[3]) if residuals else got
+    for name, g, p, truth in zip(names, outs, (plain_mean, plain_var, plain_w), (mean, var, w)):
+        err = float((g.double() - truth).abs().max())
+        plain_err = float((p.double() - truth).abs().max())
+        assert err <= 2 * plain_err, f"{name}: kernel {err:.3e}, plain {plain_err:.3e}"
 
 
 @pytest.mark.cuda

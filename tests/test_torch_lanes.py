@@ -285,10 +285,13 @@ def cuda_device():
 
 
 # Sarcos recognition and forward at 5 lanes, RoboMove recognition (64-row
-# tiles, 800 blocks) and forward at 4 lanes (the sweep), ragged ones
+# tiles, 800 blocks) and forward at 4 lanes (the sweep), ragged ones: N
+# not a multiple of the row tile (3 x 65 rows: tiles of 4; 2 x 4,225:
+# tiles of 36, two full mma row tiles and one of 4 rows), M past an mma
+# width, D = 0 and 14
 LANE_SHAPES = [(5, *MODEL_SHAPES["sarcos recognition"]), (5, *MODEL_SHAPES["sarcos forward"]),
                (4, 12800, 100, 6, 2), (4, 1600, 100, 6, 4), (3, 37, 11, 5, 3), (2, 1, 1, 1, 1),
-               (7, 53, 101, 8, 5)]
+               (7, 53, 101, 8, 5), (3, 65, 17, 6, 0), (2, 4225, 105, 5, 14)]
 
 
 @pytest.mark.cuda
