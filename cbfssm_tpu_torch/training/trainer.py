@@ -30,6 +30,12 @@ without the script that trained it. ``profile_dir`` traces the
 training half of epoch 1 under :func:`~cbfssm_tpu_torch.utils.profiling.trace`
 (a run of one epoch writes no trace).
 
+Both schedules mark their layers with
+:func:`~cbfssm_tpu_torch.utils.profiling.span` (:data:`SPAN_PHASES`
+names each span's phase): nothing while no caller records spans, and
+neither a kernel nor a read-back when one does. One ``step`` span a
+train step, one ``eval.loss`` span a test batch.
+
 ``mesh`` (a ``DeviceMesh`` from :mod:`cbfssm_tpu_torch.parallel`) trains
 across a process group, one process per GPU: the batch size is rounded
 up to the data axis, every rank draws the same shuffle and the whole
@@ -56,10 +62,29 @@ from cbfssm_tpu_torch.config import check_epochs_per_dispatch
 from cbfssm_tpu_torch.parallel import DataParallel, ParticleParallel, noise_rows
 from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint
-from cbfssm_tpu_torch.utils.profiling import MetricsLogger, trace
+from cbfssm_tpu_torch.utils.profiling import MetricsLogger, span, trace
 from cbfssm_tpu_torch.utils.transfer import host_copy, ready_event, upload
 
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+# the Trainer's spans by the phase of training they time; the parents
+# (trainer.train, trainer.epoch, step) count their own time, outside
+# their children, as bookkeeping
+SPAN_PHASES = {
+    "data.epoch": "data",  # an epoch's shuffle and its index and weight uploads
+    "data.batch": "data",  # a batch's gathers, weights and draws (generator or noise_fn)
+    "step.forward": "forward",  # the loss
+    "step.backward": "backward",  # autograd, zero-filled leaves, the mesh's reduce
+    "step.optimizer": "optimizer",  # zero_grad; the guard and the Adam step
+    "eval.loss": "eval",  # a test batch's loss
+    "trainer.readback": "bookkeeping",  # host reads of device values, a block's wait
+    "trainer.block": "bookkeeping",  # a block's best state on the device and its copies
+    "trainer.checkpoint": "bookkeeping",
+    "trainer.log": "bookkeeping",
+    "trainer.train": "bookkeeping",
+    "trainer.epoch": "bookkeeping",
+    "step": "bookkeeping",
+}
 
 
 def epoch_indices(rng, n, batch_size, shuffle: bool, dtype):
@@ -262,10 +287,11 @@ class Trainer:
         """Save ``tree`` (default: the live params and optimizer state)."""
         if not self.dp.writer:
             return
-        if tree is None:
-            tree = {"params": [t.detach() for t in self.params.tensors()],
-                    "opt_state": self.optimizer.state_dict()}
-        self.saver.save(os.path.join(self.model_dir, name), tree)
+        with span("trainer.checkpoint"):
+            if tree is None:
+                tree = {"params": [t.detach() for t in self.params.tensors()],
+                        "opt_state": self.optimizer.state_dict()}
+            self.saver.save(os.path.join(self.model_dir, name), tree)
 
     # --- batching ----------------------------------------------------------
 
@@ -281,19 +307,22 @@ class Trainer:
 
     def _batches(self, data_u, data_y, batch_size, shuffle, epoch, split):
         """(u, y, weights, generator, noise) of each batch of an epoch."""
-        idx, w = self._epoch_indices(data_u.shape[0], batch_size, shuffle)
-        idx_d = upload(idx.astype(np.int64), self.device)
-        w_d = upload(w, self.device)
+        with span("data.epoch"):
+            idx, w = self._epoch_indices(data_u.shape[0], batch_size, shuffle)
+            idx_d = upload(idx.astype(np.int64), self.device)
+            w_d = upload(w, self.device)
         t_len = data_u.shape[1]
         for i in range(idx.shape[0]):
-            noise = None
-            if self._noise_fn is not None:
-                noise = self._noise_fn(epoch, split, i, batch_size, t_len)
-            gen = None
-            if noise is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(batch_seed(self.seed, epoch, split, i))
-            yield data_u[idx_d[i]], data_y[idx_d[i]], w_d[i], gen, noise
+            with span("data.batch"):
+                noise = None
+                if self._noise_fn is not None:
+                    noise = self._noise_fn(epoch, split, i, batch_size, t_len)
+                gen = None
+                if noise is None:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(batch_seed(self.seed, epoch, split, i))
+                batch = data_u[idx_d[i]], data_y[idx_d[i]], w_d[i], gen, noise
+            yield batch  # outside the span: the caller's step is not data
 
     def _loss(self, u, y, weights, generator, noise):
         """The batch's ``(loss, aux)``. On a mesh (a plain model) this
@@ -317,24 +346,30 @@ class Trainer:
         (moments and step count) unchanged, decided on the device
         (:meth:`_adam_update`); on a mesh every rank decides on the
         reduced flag, so all skip together."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self._loss(u, y, weights, generator, noise)
-        loss.backward()
-        leaves = self.params.tensors()
-        for p in leaves:
-            if p.grad is None:  # a leaf the loss does not reach: zero, as in JAX
-                p.grad = torch.zeros_like(p)
-        self.dp.reduce_grads([p.grad for p in leaves])
-        ok = None
-        if self._guard:
-            ok = torch.isfinite(loss)
-            for p in leaves:
-                ok = ok & torch.isfinite(p.grad).all()
-            ok = self.dp.all_reduce_scalars(ok.to(loss.dtype),
-                                            op=torch.distributed.ReduceOp.MIN) > 0.5
-        self._adam_update(leaves, ok)
-        applied = torch.ones((), dtype=torch.bool, device=loss.device) if ok is None else ok
-        return loss.detach(), applied
+        with span("step"):
+            with span("step.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with span("step.forward"):
+                loss, _ = self._loss(u, y, weights, generator, noise)
+            with span("step.backward"):
+                loss.backward()
+                leaves = self.params.tensors()
+                for p in leaves:
+                    if p.grad is None:  # a leaf the loss does not reach: zero, as in JAX
+                        p.grad = torch.zeros_like(p)
+                self.dp.reduce_grads([p.grad for p in leaves])
+            with span("step.optimizer"):
+                ok = None
+                if self._guard:
+                    ok = torch.isfinite(loss)
+                    for p in leaves:
+                        ok = ok & torch.isfinite(p.grad).all()
+                    ok = self.dp.all_reduce_scalars(ok.to(loss.dtype),
+                                                    op=torch.distributed.ReduceOp.MIN) > 0.5
+                self._adam_update(leaves, ok)
+                applied = (torch.ones((), dtype=torch.bool, device=loss.device) if ok is None
+                           else ok)
+            return loss.detach(), applied
 
     def _adam_update(self, leaves, ok=None) -> None:
         """One Adam step (:func:`adam_update`) on the leaves' ``.grad``,
@@ -361,20 +396,23 @@ class Trainer:
         """Issue one test-set evaluation; returns its mean loss on the
         device."""
         data_u, data_y = self._stage("test", ds.test_in_batch, ds.test_out_batch)
-        losses = [
-            self._loss(u, y, w, gen, noise)[0]
-            for u, y, w, gen, noise in self._batches(data_u, data_y, batch_size, False, epoch, 1)
-        ]
+        losses = []
+        for u, y, w, gen, noise in self._batches(data_u, data_y, batch_size, False, epoch, 1):
+            with span("eval.loss"):
+                losses.append(self._loss(u, y, w, gen, noise)[0])
         return torch.stack(losses).mean()
 
     def _epoch_train(self, ds, batch_size, epoch):
         loss, skipped = self._train_epoch(ds, batch_size, epoch)
-        if self._guard:
-            self._note_skipped(int(skipped))
-        return float(loss)
+        with span("trainer.readback"):
+            if self._guard:
+                self._note_skipped(int(skipped))
+            return float(loss)
 
     def _epoch_eval(self, ds, batch_size, epoch):
-        return float(self._eval_epoch(ds, batch_size, epoch))
+        loss = self._eval_epoch(ds, batch_size, epoch)
+        with span("trainer.readback"):
+            return float(loss)
 
     def _note_skipped(self, skipped: int):
         self._last_skipped = skipped
@@ -393,65 +431,69 @@ class Trainer:
         return resolve_epochs_per_dispatch(self.epochs_per_dispatch, steps_per_epoch, epochs)
 
     def _log_epoch(self, epoch, train_loss, test_loss, dt, steps_per_epoch):
-        if self.dp.writer:
-            print("[{epoch:04}]: Train {train}, Test {test}  ({dt:.2f}s)".format(
-                epoch=epoch, train=train_loss, test=test_loss, dt=dt))
-        self.train_all.append(train_loss)
-        self.test_all.append(test_loss)
-        extra = {"skipped_steps": self._last_skipped} if self._guard else {}
-        self.metrics.log(
-            event="epoch", epoch=epoch, train_loss=train_loss, test_loss=test_loss,
-            seconds=dt, steps_per_sec=steps_per_epoch / dt, **extra,
-        )
+        with span("trainer.log"):
+            if self.dp.writer:
+                print("[{epoch:04}]: Train {train}, Test {test}  ({dt:.2f}s)".format(
+                    epoch=epoch, train=train_loss, test=test_loss, dt=dt))
+            self.train_all.append(train_loss)
+            self.test_all.append(test_loss)
+            extra = {"skipped_steps": self._last_skipped} if self._guard else {}
+            self.metrics.log(
+                event="epoch", epoch=epoch, train_loss=train_loss, test_loss=test_loss,
+                seconds=dt, steps_per_sec=steps_per_epoch / dt, **extra,
+            )
 
     def train(self, ds, epochs: int, retrain: bool = False):
-        if self.dp.writer:
-            print("\nTraining...\n")
-            stamp_dataset(self.model_dir, ds)
-        self.init_state(retrain)
-        self._device_data = {}
-        batch_size = self.dp.round_up_batch(int(self.model.config.batch_size))
-        steps_per_epoch = -(-ds.train_in_batch.shape[0] // batch_size)
-        epd = self._resolve_epd(steps_per_epoch, epochs)
-        lowest_train = float("inf")
-        self._best_dev = None
-        pending = None  # the issued block the host has not read back yet
-        epoch = 0
-        while epoch < epochs:
-            if epd > 1 and epochs - epoch >= epd:
-                # one-deep pipeline: issue block k+1, then read block k
-                handles = self._dispatch_block(ds, batch_size, epoch, epd, lowest_train)
+        with span("trainer.train"):
+            if self.dp.writer:
+                print("\nTraining...\n")
+                stamp_dataset(self.model_dir, ds)
+            self.init_state(retrain)
+            self._device_data = {}
+            batch_size = self.dp.round_up_batch(int(self.model.config.batch_size))
+            steps_per_epoch = -(-ds.train_in_batch.shape[0] // batch_size)
+            epd = self._resolve_epd(steps_per_epoch, epochs)
+            lowest_train = float("inf")
+            self._best_dev = None
+            pending = None  # the issued block the host has not read back yet
+            epoch = 0
+            while epoch < epochs:
+                if epd > 1 and epochs - epoch >= epd:
+                    # one-deep pipeline: issue block k+1, then read block k
+                    handles = self._dispatch_block(ds, batch_size, epoch, epd, lowest_train)
+                    if pending is not None:
+                        lowest_train = self._process_block(pending, lowest_train, steps_per_epoch,
+                                                           t_next=handles[2])
+                    pending = handles
+                    epoch += epd
+                    continue
                 if pending is not None:
-                    lowest_train = self._process_block(pending, lowest_train, steps_per_epoch,
-                                                       t_next=handles[2])
-                pending = handles
-                epoch += epd
-                continue
+                    # the per-epoch tail compares on the host: drain first
+                    lowest_train = self._process_block(pending, lowest_train, steps_per_epoch)
+                    pending = None
+                with span("trainer.epoch"):
+                    t0 = time.perf_counter()
+                    if self.profile_dir and epoch == 1:
+                        # epoch 1: past the first-call costs, a steady-state trace
+                        with trace(self.profile_dir):
+                            train_loss = self._epoch_train(ds, batch_size, epoch)
+                    else:
+                        train_loss = self._epoch_train(ds, batch_size, epoch)
+                    test_loss = self._epoch_eval(ds, batch_size, epoch)
+                    self._log_epoch(epoch, train_loss, test_loss, time.perf_counter() - t0,
+                                    steps_per_epoch)
+                    if train_loss < lowest_train:
+                        self._save(checkpoint.BEST)
+                        lowest_train = train_loss
+                epoch += 1
             if pending is not None:
-                # the per-epoch tail compares on the host: drain first
                 lowest_train = self._process_block(pending, lowest_train, steps_per_epoch)
-                pending = None
-            t0 = time.perf_counter()
-            if self.profile_dir and epoch == 1:
-                # epoch 1: past the first-call costs, a steady-state trace
-                with trace(self.profile_dir):
-                    train_loss = self._epoch_train(ds, batch_size, epoch)
-            else:
-                train_loss = self._epoch_train(ds, batch_size, epoch)
-            test_loss = self._epoch_eval(ds, batch_size, epoch)
-            self._log_epoch(epoch, train_loss, test_loss, time.perf_counter() - t0,
-                            steps_per_epoch)
-            if train_loss < lowest_train:
-                self._save(checkpoint.BEST)
-                lowest_train = train_loss
-            epoch += 1
-        if pending is not None:
-            lowest_train = self._process_block(pending, lowest_train, steps_per_epoch)
-        self._save(checkpoint.LAST)
-        self.saver.flush(self.model_dir)
-        self.dp.barrier()  # rank 0's files are on disk before any rank reads them
-        done_extra = {"skipped_steps": self.skipped_steps} if self._guard else {}
-        self.metrics.log(event="done", epochs=epochs, best_train=lowest_train, **done_extra)
+            self._save(checkpoint.LAST)
+            with span("trainer.checkpoint"):
+                self.saver.flush(self.model_dir)
+            self.dp.barrier()  # rank 0's files are on disk before any rank reads them
+            done_extra = {"skipped_steps": self.skipped_steps} if self._guard else {}
+            self.metrics.log(event="done", epochs=epochs, best_train=lowest_train, **done_extra)
 
     def _dispatch_block(self, ds, batch_size, start: int, k: int, lowest_train: float):
         """Issue epochs [start, start + k) and return the block's handles
@@ -463,31 +505,38 @@ class Trainer:
         losses and best state are then copied to the host behind its
         last kernel, with an event to wait on."""
         t0 = time.perf_counter()
-        if self._best_dev is None:
-            self._best_dev = torch.full((), lowest_train, dtype=self.model.dtype,
-                                        device=self.device)
-        best_params, best_opt = self._snapshot()
+        with span("trainer.block"):
+            if self._best_dev is None:
+                self._best_dev = torch.full((), lowest_train, dtype=self.model.dtype,
+                                            device=self.device)
+            best_params, best_opt = self._snapshot()
         trl, tel, skl = [], [], []
         for epoch in range(start, start + k):
-            train_loss, skipped = self._train_epoch(ds, batch_size, epoch)
-            tel.append(self._eval_epoch(ds, batch_size, epoch))
-            trl.append(train_loss)
-            skl.append(skipped)
-            improved = train_loss < self._best_dev
-            self._best_dev = torch.where(improved, train_loss, self._best_dev)
-            params, opt = self._snapshot()
-            best_params = [torch.where(improved, n, b) for n, b in zip(params, best_params)]
-            # a leaf's Adam state appears at its first step
-            best_opt = {i: {key: torch.where(improved, n, best_opt[i][key]) if i in best_opt
-                            else n for key, n in st.items()} for i, st in opt.items()}
-        host = {
-            "train": host_copy(torch.stack(trl)), "test": host_copy(torch.stack(tel)),
-            "skipped": host_copy(torch.stack(skl)) if self._guard else None,
-            "best": host_copy(self._best_dev),
-            "params": [host_copy(t) for t in best_params],
-            "opt": {i: {key: host_copy(t) for key, t in st.items()} for i, st in best_opt.items()},
-        }
-        return start, k, t0, host, ready_event(self.device)
+            with span("trainer.epoch"):
+                train_loss, skipped = self._train_epoch(ds, batch_size, epoch)
+                tel.append(self._eval_epoch(ds, batch_size, epoch))
+                trl.append(train_loss)
+                skl.append(skipped)
+                with span("trainer.block"):
+                    improved = train_loss < self._best_dev
+                    self._best_dev = torch.where(improved, train_loss, self._best_dev)
+                    params, opt = self._snapshot()
+                    best_params = [torch.where(improved, n, b)
+                                   for n, b in zip(params, best_params)]
+                    # a leaf's Adam state appears at its first step
+                    best_opt = {i: {key: torch.where(improved, n, best_opt[i][key])
+                                    if i in best_opt else n for key, n in st.items()}
+                                for i, st in opt.items()}
+        with span("trainer.block"):
+            host = {
+                "train": host_copy(torch.stack(trl)), "test": host_copy(torch.stack(tel)),
+                "skipped": host_copy(torch.stack(skl)) if self._guard else None,
+                "best": host_copy(self._best_dev),
+                "params": [host_copy(t) for t in best_params],
+                "opt": {i: {key: host_copy(t) for key, t in st.items()}
+                        for i, st in best_opt.items()},
+            }
+            return start, k, t0, host, ready_event(self.device)
 
     def _snapshot(self):
         """Copies of the live params and of the optimizer's per-leaf state
@@ -512,7 +561,8 @@ class Trainer:
         comes a block late), else to the read-back."""
         start, k, t0, host, event = handles
         if event is not None:
-            event.synchronize()
+            with span("trainer.readback"):
+                event.synchronize()
         dt = ((time.perf_counter() if t_next is None else t_next) - t0) / k
         for j in range(k):
             if self._guard:

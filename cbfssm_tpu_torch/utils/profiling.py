@@ -1,14 +1,32 @@
-"""Tracing, NaN checks, structured metrics and step timing (port of
+"""Tracing, spans, NaN checks and structured metrics (port of
 ``cbfssm_tpu/utils/profiling.py``).
 
 * :func:`trace`: a ``torch.profiler`` trace of the block (host ops, and
   the card's kernels when CUDA is in use), written into a directory as
   a Chrome / TensorBoard trace file;
+* :func:`span` / :func:`record_spans`: named host-time spans of the
+  program's layers (the Trainer's phases), recorded in memory while a
+  caller asks for them;
 * :func:`debug_nans`: raise ``FloatingPointError`` at the first op,
   forward or backward, whose output holds a NaN;
 * :class:`MetricsLogger`: append-only JSONL metrics (one object per
-  event);
-* :class:`StepTimer`: wall-clock steps/sec with warmup discard.
+  event).
+
+Spans are off by default: :func:`span` then hands back one shared
+object that does nothing (no allocation, no torch call, no clock read).
+Inside :func:`record_spans` each span is kept as ``(name, parent,
+start_ns, end_ns)``: ``parent`` is the index in the list of the span
+that was open when it began (``None`` at the top). The times are
+``time.perf_counter_ns`` readings plus one offset to ``time.time_ns``,
+read when recording starts: Unix-epoch nanoseconds, the clock of
+``torch.profiler``'s event timestamps (``_KinetoEvent.start_ns()``), on
+the CPU and on the card. So a span can be laid over a profiler trace of
+the same stretch: the runtime call that launched a kernel, or an idle
+gap of the device, falls inside the spans that were open then. Inside
+:func:`trace` spans also open ``torch.profiler.record_function`` ranges,
+so the written trace shows them. Spans are opened and closed on one
+thread (the Trainer's); the switch is process-wide, as
+``debug_nans``'s is.
 """
 
 from __future__ import annotations
@@ -42,7 +60,9 @@ def trace(log_dir: str):
     ``_WARM_UP_KERNELS`` small kernels, waits for them and sleeps
     ``_WARM_UP_S``. On an H100 host a trace without it lost the first
     kernel events of the block, more with every trace the process had
-    taken; ``scripts/torch_trace_warmup.py`` compares the two forms."""
+    taken; ``scripts/torch_trace_warmup.py`` compares the two forms.
+    Inside the block each :func:`span` is also a ``record_function``
+    range of its name, so the trace shows the program's phases."""
     from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
@@ -57,9 +77,111 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
             time.sleep(_WARM_UP_S)
         prof.step()  # the warm-up ends and the recorded cycle starts
-        yield prof
-        if cuda:
-            torch.cuda.synchronize()
+        _SPANS.annotate += 1
+        _SPANS.refresh()
+        try:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            _SPANS.annotate -= 1
+            _SPANS.refresh()
+
+
+class _Spans:
+    """The process's span switch: the list being recorded (``None``:
+    not recording), the index of the innermost open span in it, and how
+    many :func:`trace` blocks are open; ``on`` while either asks for
+    spans."""
+
+    def __init__(self):
+        self.records = None
+        self.open = None
+        self.annotate = 0
+        self.on = False
+
+    def refresh(self):
+        self.on = self.records is not None or self.annotate > 0
+
+
+_SPANS = _Spans()
+
+
+class _NoSpan:
+    """What :func:`span` returns while spans are off: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "records", "index", "parent", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if _SPANS.annotate:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.records = _SPANS.records
+        if self.records is not None:
+            self.parent, self.index = _SPANS.open, len(self.records)
+            _SPANS.open = self.index
+            self.records.append([self.name, self.parent, time.perf_counter_ns(), None])
+        return self
+
+    def __exit__(self, *exc):
+        if self.records is not None:
+            self.records[self.index][3] = time.perf_counter_ns()
+            if _SPANS.records is self.records:
+                _SPANS.open = self.parent
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks its block as the span ``name`` while
+    :func:`record_spans` or :func:`trace` is on, and does nothing (one
+    shared object) otherwise. A span launches no kernel and reads
+    nothing back from the device."""
+    if not _SPANS.on:
+        return _NO_SPAN
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record every span opened inside the block. Yields a list that,
+    once the block has ended, holds one ``(name, parent, start_ns,
+    end_ns)`` a span in the order the spans began (the module docstring
+    gives the clock); a span still open then ends there. Nothing is
+    written anywhere else."""
+    if _SPANS.records is not None:
+        raise RuntimeError("record_spans() is already recording")
+    out = []
+    offset = time.time_ns() - time.perf_counter_ns()
+    _SPANS.records, _SPANS.open = [], None
+    _SPANS.refresh()
+    try:
+        yield out
+    finally:
+        end = time.perf_counter_ns()
+        records = _SPANS.records
+        _SPANS.records, _SPANS.open = None, None
+        _SPANS.refresh()
+        out.extend((name, parent, start + offset, (end if stop is None else stop) + offset)
+                   for name, parent, start, stop in records)
 
 
 # ops whose outputs are uninitialised memory, which may hold NaN bits
@@ -121,30 +243,3 @@ class MetricsLogger:
         event.setdefault("time", time.time())
         with open(self.path, "a") as f:
             f.write(json.dumps(event) + "\n")
-
-
-class StepTimer:
-    """Steps/sec over a sliding window, discarding warmup steps."""
-
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self._count = 0
-        # warmup=0 has no warmup tick to start the clock on, so the
-        # window starts at construction
-        self._t0 = time.perf_counter() if warmup == 0 else None
-        self._timed_steps = 0
-
-    def tick(self) -> None:
-        # a tick marks the END of a step; the clock starts when the
-        # warmup-th tick lands, and every later tick is a timed step
-        self._count += 1
-        if self._count == self.warmup:
-            self._t0 = time.perf_counter()
-        elif self._count > self.warmup:
-            self._timed_steps += 1
-
-    @property
-    def steps_per_sec(self) -> float | None:
-        if self._t0 is None or self._timed_steps == 0:
-            return None
-        return self._timed_steps / (time.perf_counter() - self._t0)

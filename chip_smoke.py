@@ -818,7 +818,10 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         trainer.train_step(*args)
         sync()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # under ``trace`` the Trainer's spans are also ranges on the card's
+    # timeline (user annotations), which are not kernels
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1

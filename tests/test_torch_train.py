@@ -10,9 +10,11 @@
   tests/test_trainer.py's SmokeDS from the same init params, shuffles
   and noise: per-epoch losses and final params at rtol 1e-6.
 - Checkpoints, resume, the non-finite guard, metrics and determinism of
-  the port's own trainer.
+  the port's own trainer; its spans (``utils/profiling.span``) in both
+  schedules, which change no loss or checkpoint.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -27,11 +29,12 @@ from cbfssm_tpu.models import CBFSSM as JaxCBFSSM
 from cbfssm_tpu.training import Trainer as JaxTrainer
 from cbfssm_tpu.training import trainer as jax_trainer
 from cbfssm_tpu_torch.convert import cbfssm_params_from_numpy, cbfssm_params_to_numpy
-from cbfssm_tpu_torch.models import CBFSSM
+from cbfssm_tpu_torch.models import CBFSSM, Voliro
 from cbfssm_tpu_torch.training import Trainer, checkpoint
 from cbfssm_tpu_torch.training import trainer as port_trainer
-from cbfssm_tpu_torch.utils.profiling import StepTimer
+from cbfssm_tpu_torch.utils.profiling import record_spans
 from tests.test_cbfssm_model import make_model
+from tests.test_other_models import voliro_batch, voliro_config
 from tests.test_torch_cbfssm import batch, jax_noise, pair, params_numpy, port_config
 from tests.test_trainer import SmokeDS, smoke_config
 
@@ -306,15 +309,61 @@ def test_async_saver_flush_reraises_scoped_by_prefix(tmp_path, monkeypatch):
     assert checkpoint.shared_saver() is checkpoint.shared_saver()
 
 
-@pytest.mark.parametrize("warmup", [0, 1, 2])
-def test_step_timer_discards_warmup(warmup, monkeypatch):
-    clock = iter(float(t) for t in range(100))
-    monkeypatch.setattr("cbfssm_tpu_torch.utils.profiling.time.perf_counter", lambda: next(clock))
-    timer = StepTimer(warmup=warmup)
-    assert timer.steps_per_sec is None
-    for _ in range(warmup + 3):
-        timer.tick()
-    # clock reads: start (at construction or the warmup-th tick), then
-    # one read by steps_per_sec; 3 timed steps over that span
-    rate = timer.steps_per_sec
-    assert rate is not None and rate > 0
+class VoliroWindows:
+    """Voliro windows of 6 steps: 6 train (3 steps of 2), 4 test (2
+    batches)."""
+
+    def __init__(self):
+        rng = np.random.default_rng(5)
+        self.train_in_batch, self.train_out_batch = voliro_batch(rng, b=6)
+        self.test_in_batch, self.test_out_batch = voliro_batch(rng, b=4)
+
+
+SPAN_MODELS = {
+    "cbfssm": (lambda: CBFSSM(smoke_config(), device="cpu"), SmokeDS),
+    "voliro": (lambda: Voliro(voliro_config(), device="cpu"), VoliroWindows),
+}
+
+
+def restored_tree(path, name):
+    return torch.utils._pytree.tree_flatten(checkpoint.restore(os.path.join(path, name)))
+
+
+@pytest.mark.parametrize("epd", [1, 2])
+@pytest.mark.parametrize("kind", sorted(SPAN_MODELS))
+def test_trainer_spans_count_steps_and_change_nothing(tmp_path, kind, epd):
+    """Recorded over 4 epochs of both schedules: one ``step`` span a
+    train step and one ``eval.loss`` span a test batch; every span's
+    name has a phase and every span lies inside its parent; each step
+    has its forward, backward and optimizer spans, and a data span
+    before it. Losses and both checkpoints are bitwise those of the run
+    without spans."""
+    make_model, make_ds = SPAN_MODELS[kind]
+    ds, epochs = make_ds(), 4
+    runs = {}
+    for on in (False, True):
+        path = str(tmp_path / f"spans{on}")
+        tr = Trainer(make_model(), path, seed=2, epochs_per_dispatch=epd)
+        with record_spans() if on else contextlib.nullcontext() as spans:
+            tr.train(ds, epochs)
+        runs[on] = (tr, path, spans)
+    (plain, plain_dir, _), (spanned, spanned_dir, spans) = runs[False], runs[True]
+    assert plain.train_all == spanned.train_all and plain.test_all == spanned.test_all
+    for name in (checkpoint.BEST, checkpoint.LAST):
+        (a, spec_a), (b, spec_b) = (restored_tree(d, name) for d in (plain_dir, spanned_dir))
+        assert spec_a == spec_b
+        assert all(torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+    batch_size = int(make_model().config.batch_size)
+    names = [s[0] for s in spans]
+    assert names.count("step") == epochs * -(-len(ds.train_in_batch) // batch_size)
+    assert names.count("eval.loss") == epochs * -(-len(ds.test_in_batch) // batch_size)
+    assert set(names) <= set(port_trainer.SPAN_PHASES)
+    for _, parent, start, end in spans:
+        assert start <= end
+        if parent is not None:
+            assert spans[parent][2] <= start and end <= spans[parent][3]
+    for i, (name, _, start, _) in enumerate(spans):
+        if name == "step":
+            children = {s[0] for s in spans if s[1] == i}
+            assert children == {"step.forward", "step.backward", "step.optimizer"}
+            assert spans[i - 1][0] == "data.batch" and spans[i - 1][3] <= start
