@@ -32,11 +32,13 @@ so the lane trainers' ``torch.func.vmap`` carries them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cbfssm_tpu_torch.models.base import LOG_2PI_E
 from cbfssm_tpu_torch.ops import gp, gp_adjoint
 from cbfssm_tpu_torch.ops.distributions import kl_diag_gaussians
+from cbfssm_tpu_torch.utils.transfer import constant
 
 
 def forward_step(cache_f, var_x, var_y, k_factor, dims, gp_predict):
@@ -178,7 +180,8 @@ class ForwardScan(torch.autograd.Function):
         one_m_gain = 1.0 - gain
         mu = fmean + gain * (y_next_in - fmean)
         sig = torch.square(one_m_gain) * fvar + torch.square(gain) * vyt
-        cond_b = torch.as_tensor(cond, device=x0.device)[:, None, None, None]
+        cond_b = constant(("adjoint.cond", cond), lambda: np.asarray(cond), x0.device)
+        cond_b = cond_b[:, None, None, None]
         sqrt_su = torch.sqrt(torch.where(cond_b, sig, fvar))
         # the conditioned steps' pullback is linear in (d_x_next, d_kl):
         # its coefficients, batched over all steps
@@ -298,7 +301,8 @@ class BackwardScan(torch.autograd.Function):
         # ---- phase 1: batched recompute, rows in layout order ----
         prev_out = torch.cat((h0[None], outs[:-1]))
         h_carry = torch.where(z_in[:, :, :, None, None, None], 0.0, prev_out)
-        res_b = torch.as_tensor(res, device=h0.device)[:, None, None, None, None, None]
+        res_b = constant(("adjoint.res", res), lambda: np.asarray(res), h0.device)
+        res_b = res_b[:, None, None, None, None, None]
         h_in = torch.where(res_b, noise_in, h_carry)  # [two_l, 2, K, B, S, dh]
         uy = torch.cat((u_in, y_in), dim=-1)[:, :, :, :, None, :].expand(
             (two_l,) + lead + (du + dy,))

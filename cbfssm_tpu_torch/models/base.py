@@ -25,6 +25,15 @@ def hyper(value):
     return value if isinstance(value, torch.Tensor) else float(value)
 
 
+def noise_tensors(noise) -> list:
+    """The tensors of a rollout's draws (a model's ``draw_noise``), in
+    the order they are drawn: ``[noise]`` for one tensor, else the fields
+    of its dataclass (``RolloutNoise``, ``VoliroNoise``) in field order."""
+    if isinstance(noise, torch.Tensor):
+        return [noise]
+    return [getattr(noise, f.name) for f in dataclasses.fields(noise)]
+
+
 def moments_over_samples(x):
     """Population mean/variance over the particle axis of [B, T, S, D]."""
     mean = torch.mean(x, dim=2)
@@ -171,13 +180,15 @@ class BaseSSM:
         in the compute dtype."""
         return torch.as_tensor(a, dtype=self.dtype, device=self.device).transpose(0, 1)
 
-    def _shared_eps(self, generator, shape):
+    def _shared_eps(self, generator, shape, out=None):
         """Per-(time, batch, particle) standard-normal draws shared
         across state dimensions: ``shape + (1,)``, from ``generator`` on
-        the model's device."""
-        return torch.randn(
-            tuple(shape) + (1,), generator=generator, dtype=self.dtype, device=self.device
-        )
+        the model's device; with ``out`` (of that shape) written into it,
+        the same numbers."""
+        shape = tuple(shape) + (1,)
+        if out is not None:
+            return torch.randn(shape, generator=generator, out=out)
+        return torch.randn(shape, generator=generator, dtype=self.dtype, device=self.device)
 
     def _eps_or_draw(self, eps, generator, shape):
         """``eps`` on the model's device, checked to be ``shape + (1,)``,
@@ -322,10 +333,12 @@ class RecognitionSSM(BaseSSM):
             recog=recognition.init_leaves(self.recog_module, generator, self.dtype, self.device),
         )
 
-    def draw_noise(self, generator: torch.Generator, t_len: int, b: int) -> torch.Tensor:
+    def draw_noise(self, generator: torch.Generator, t_len: int, b: int,
+                   out=None) -> torch.Tensor:
         """The rollout's draws ``[T-1, B, S, 1]``, in the JAX package's
-        shape (the JAX models draw them straight from the loss key)."""
-        return self._shared_eps(generator, (t_len - 1, b, self.samples))
+        shape (the JAX models draw them straight from the loss key); with
+        ``out`` (draws of that shape) written into it."""
+        return self._shared_eps(generator, (t_len - 1, b, self.samples), out)
 
     def _initial_state(self, params, u, y):
         """x_0 [B, S, dim_x], the same for every particle, from the

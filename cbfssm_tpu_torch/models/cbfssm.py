@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from cbfssm_tpu_torch.models import adjoint, segmentation
-from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput, hyper
+from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, PredictOutput, hyper, noise_tensors
 from cbfssm_tpu_torch.ops import gp, transforms
-from cbfssm_tpu_torch.utils.transfer import upload
+from cbfssm_tpu_torch.utils.transfer import constant
 
 
 @dataclass
@@ -150,17 +150,20 @@ class CBFSSM(BaseSSM):
             mode = "blocked" if blocked else "sequential"
         return mode
 
-    def draw_noise(self, generator: torch.Generator, t_len: int, b: int) -> RolloutNoise:
+    def draw_noise(self, generator: torch.Generator, t_len: int, b: int,
+                   out: RolloutNoise | None = None) -> RolloutNoise:
         """The rollout's draws, in the JAX package's shapes and order
-        (recognition resample, recognition transition, forward)."""
+        (recognition resample, recognition transition, forward); with
+        ``out`` (draws of these shapes) written into its tensors."""
         s = self.samples
         t_b = t_len
         if self.backward_schedule(t_len) == "blocked":
             t_b = segmentation.blocked_layout(t_len, self.config.recog_len)[0]
+        outs = (None,) * 3 if out is None else noise_tensors(out)
         return RolloutNoise(
-            backward_noise=self._shared_eps(generator, (t_b, 2, b, s)),
-            backward_eps=self._shared_eps(generator, (t_b, 2, b, s)),
-            forward_eps=self._shared_eps(generator, (t_len - 1, b, s)),
+            backward_noise=self._shared_eps(generator, (t_b, 2, b, s), outs[0]),
+            backward_eps=self._shared_eps(generator, (t_b, 2, b, s), outs[1]),
+            forward_eps=self._shared_eps(generator, (t_len - 1, b, s), outs[2]),
         )
 
     # --- backward (recognition) pass ------------------------------------
@@ -175,8 +178,9 @@ class CBFSSM(BaseSSM):
     def _backward_sequential(self, cache_b, var_x, u_tm, y_tm, noise, eps):
         t_len, b = u_tm.shape[0], u_tm.shape[1]
         s, dh, duy = self.samples, self.dim_h, self.dim_u + self.dim_y
-        resample_np, write0_np = segmentation.backward_masks(t_len, self.config.recog_len)
-        resample = upload(resample_np, self.device)
+        recog_len = self.config.recog_len
+        resample_np, write0_np = segmentation.backward_masks(t_len, recog_len)
+        resample = constant(("cbfssm.resample", t_len, recog_len), lambda: resample_np, self.device)
         var_x_h = var_x[:dh]
 
         h = torch.zeros((2, b, s, dh), dtype=self.dtype, device=self.device)
@@ -236,7 +240,7 @@ class CBFSSM(BaseSSM):
         zmask_np = np.arange(t_ext)[None, :] == np.asarray(
             [t_len - 1 + s_r for s_r in shifts]
         )[:, None]
-        zmask = upload(zmask_np, self.device)
+        zmask = constant(("cbfssm.zmask", t_len, recog_len), lambda: zmask_np, self.device)
 
         z_st = to_steps(zmask, True)
         u_st = to_steps(shift_stack(u_tm), True)
@@ -268,7 +272,7 @@ class CBFSSM(BaseSSM):
 
         # un-shift each run and select the writing run per absolute t
         _, write0_np = segmentation.backward_masks(t_len, recog_len)
-        write0 = upload(write0_np, self.device)
+        write0 = constant(("cbfssm.write0", t_len, recog_len), lambda: write0_np, self.device)
         y2_runs = [outs[r, s_r:s_r + t_len] for r, s_r in enumerate(shifts)]
         ent_runs = [ents[r, s_r:s_r + t_len] for r, s_r in enumerate(shifts)]
         y2 = torch.where(write0[:, None, None, None], y2_runs[0], y2_runs[1])

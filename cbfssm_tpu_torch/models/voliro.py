@@ -34,7 +34,8 @@ import math
 import numpy as np
 import torch
 
-from cbfssm_tpu_torch.models.base import LOG_2PI_E, BaseSSM, hyper, moments_over_samples
+from cbfssm_tpu_torch.models.base import (LOG_2PI_E, BaseSSM, hyper, moments_over_samples,
+                                         noise_tensors)
 from cbfssm_tpu_torch.ops import gp, gp_adjoint, parallel_vjp, quaternion, transforms
 from cbfssm_tpu_torch.ops.distributions import beta_logpdf, kl_diag_gaussians
 
@@ -156,12 +157,15 @@ class Voliro(BaseSSM):
             var_z_unc=self._noise_unc(cfg.var_z),
         )
 
-    def draw_noise(self, generator: torch.Generator, t_len: int, b: int) -> VoliroNoise:
-        """The rollout's three draws, in the JAX package's shapes."""
+    def draw_noise(self, generator: torch.Generator, t_len: int, b: int,
+                   out: VoliroNoise | None = None) -> VoliroNoise:
+        """The rollout's three draws, in the JAX package's shapes; with
+        ``out`` (draws of these shapes) written into its tensors."""
         s = self.samples
-        return VoliroNoise(self._shared_eps(generator, (b, t_len, s)),
-                           self._shared_eps(generator, (t_len, b, s)),
-                           self._shared_eps(generator, (t_len - 1, b, s)))
+        outs = (None,) * 3 if out is None else noise_tensors(out)
+        return VoliroNoise(self._shared_eps(generator, (b, t_len, s), outs[0]),
+                           self._shared_eps(generator, (t_len, b, s), outs[1]),
+                           self._shared_eps(generator, (t_len - 1, b, s), outs[2]))
 
     def var_dict(self, params: VoliroParams) -> dict:
         """Named hyper/variational parameters (the reference var_dump)."""

@@ -3,7 +3,12 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from cbfssm_tpu_torch.utils.transfer import constant
+
+_CONJUGATE = np.array([1.0, -1.0, -1.0, -1.0])
 
 
 def multiply(a, b):
@@ -23,7 +28,7 @@ def multiply(a, b):
 
 def conjugate(q):
     """Quaternion conjugate (the inverse of a unit quaternion)."""
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * constant("quaternion.conjugate", lambda: _CONJUGATE, q.device, q.dtype)
 
 
 def from_vector(v):

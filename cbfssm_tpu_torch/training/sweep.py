@@ -100,8 +100,8 @@ class SweptModel:
                  for f in self.fields}
         return SweptParams(self.template.init(generator), hyper)
 
-    def draw_noise(self, generator: torch.Generator, t_len: int, b: int):
-        return self.template.draw_noise(generator, t_len, b)
+    def draw_noise(self, generator: torch.Generator, t_len: int, b: int, out=None):
+        return self.template.draw_noise(generator, t_len, b, out)
 
     def loss(self, params: SweptParams, u, y, generator=None, condition: bool = True,
              weights=None, noise=None):

@@ -30,6 +30,11 @@ without the script that trained it. ``profile_dir`` traces the
 training half of epoch 1 under :func:`~cbfssm_tpu_torch.utils.profiling.trace`
 (a run of one epoch writes no trace).
 
+On a CUDA device (no mesh, no ``ParticleParallel`` model) the train step
+and the test batch run as replays of CUDA graphs
+(:mod:`~cbfssm_tpu_torch.training.step_graph`), with the eager path's
+numbers; :meth:`Trainer.graph_counts` says how often.
+
 Both schedules mark their layers with
 :func:`~cbfssm_tpu_torch.utils.profiling.span` (:data:`SPAN_PHASES`
 names each span's phase): nothing while no caller records spans, and
@@ -50,6 +55,7 @@ writes the directory's files and prints; every rank loads them.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -61,7 +67,8 @@ from cbfssm_tpu_torch import model_store
 from cbfssm_tpu_torch.config import check_epochs_per_dispatch
 from cbfssm_tpu_torch.parallel import DataParallel, ParticleParallel, noise_rows
 from cbfssm_tpu_torch.parallel.sharding import check_mesh
-from cbfssm_tpu_torch.training import checkpoint
+from cbfssm_tpu_torch.training import checkpoint, step_graph
+from cbfssm_tpu_torch.training.step_graph import FALLBACK, StaticBatch, StepGraph
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger, span, trace
 from cbfssm_tpu_torch.utils.transfer import host_copy, ready_event, upload
 
@@ -77,6 +84,8 @@ SPAN_PHASES = {
     "step.backward": "backward",  # autograd, zero-filled leaves, the mesh's reduce
     "step.optimizer": "optimizer",  # zero_grad; the guard and the Adam step
     "eval.loss": "eval",  # a test batch's loss
+    "step.capture": "capture",  # a graph's capture (the step's spans inside it)
+    "step.replay": "replay",  # a graph's launch: a train step's or a test batch's work
     "trainer.readback": "bookkeeping",  # host reads of device values, a block's wait
     "trainer.block": "bookkeeping",  # a block's best state on the device and its copies
     "trainer.checkpoint": "bookkeeping",
@@ -238,6 +247,13 @@ class Trainer:
         self._noise_fn = noise_fn
         self._device_data = {}
         self._best_dev = None  # the device-side running best of a blocked train()
+        # CUDA graphs of the train step and test batch (step_graph)
+        self._graph_on = step_graph.eligible(self.device, self.dp.mesh, self._particle)
+        self._graphs = {}  # key -> StepGraph, or FALLBACK
+        self._static = {}  # split -> the StaticBatch of its newest graph
+        self._graph_pool = self._graph_stream = None
+        self._warm_shapes = set()  # (split, shapes) run eagerly
+        self.graph_captures = self.graph_replays = self.eager_steps = self.graph_fallbacks = 0
         os.makedirs(model_dir, exist_ok=True)
         if self.dp.writer:
             stamp_model_meta(model_dir, model, seed)
@@ -248,6 +264,7 @@ class Trainer:
         """Init params as leaves that require grad, and a new Adam with
         optax's ``adam`` defaults (a ``torch.optim.Adam`` that holds the
         state in its format and is stepped by :meth:`_adam_update`)."""
+        self._drop_graphs()
         if self._init_params is not None:
             params = self._init_params.to(device=self.device, dtype=self.model.dtype)
         else:
@@ -266,6 +283,7 @@ class Trainer:
         with torch.no_grad():
             for leaf, saved in zip(leaves, tree["params"]):
                 leaf.copy_(saved)
+        self._drop_graphs()  # the state is new
         self.optimizer.load_state_dict(tree["opt_state"])
         for state in self.optimizer.state.values():  # :meth:`_adam_update` reads it there
             state["step"] = state["step"].to(self.device)
@@ -312,6 +330,10 @@ class Trainer:
             idx_d = upload(idx.astype(np.int64), self.device)
             w_d = upload(w, self.device)
         t_len = data_u.shape[1]
+        static = self._static.get(split)  # the split's graph inputs, gathered into
+        if static is not None and (static.u.shape, static.y.shape) != (
+                (batch_size,) + data_u.shape[1:], (batch_size,) + data_y.shape[1:]):
+            static = None
         for i in range(idx.shape[0]):
             with span("data.batch"):
                 noise = None
@@ -321,7 +343,12 @@ class Trainer:
                 if noise is None:
                     gen = torch.Generator(device=self.device)
                     gen.manual_seed(batch_seed(self.seed, epoch, split, i))
-                batch = data_u[idx_d[i]], data_y[idx_d[i]], w_d[i], gen, noise
+                if static is None:
+                    u, y = data_u[idx_d[i]], data_y[idx_d[i]]
+                else:
+                    u = torch.index_select(data_u, 0, idx_d[i], out=static.u)
+                    y = torch.index_select(data_y, 0, idx_d[i], out=static.y)
+                batch = u, y, w_d[i], gen, noise
             yield batch  # outside the span: the caller's step is not data
 
     def _loss(self, u, y, weights, generator, noise):
@@ -346,30 +373,134 @@ class Trainer:
         (moments and step count) unchanged, decided on the device
         (:meth:`_adam_update`); on a mesh every rank decides on the
         reduced flag, so all skip together."""
-        with span("step"):
-            with span("step.optimizer"):
-                self.optimizer.zero_grad(set_to_none=True)
-            with span("step.forward"):
-                loss, _ = self._loss(u, y, weights, generator, noise)
-            with span("step.backward"):
-                loss.backward()
-                leaves = self.params.tensors()
+        with span("step"), self._own_stream():
+            return self._graphed(0, self._step, u, y, weights, generator, noise)
+
+    def _step(self, u, y, weights, generator, noise):
+        """The work of :meth:`train_step`, run eagerly or captured."""
+        with span("step.optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with span("step.forward"):
+            loss, _ = self._loss(u, y, weights, generator, noise)
+        with span("step.backward"):
+            loss.backward()
+            leaves = self.params.tensors()
+            for p in leaves:
+                if p.grad is None:  # a leaf the loss does not reach: zero, as in JAX
+                    p.grad = torch.zeros_like(p)
+            self.dp.reduce_grads([p.grad for p in leaves])
+        with span("step.optimizer"):
+            ok = None
+            if self._guard:
+                ok = torch.isfinite(loss)
                 for p in leaves:
-                    if p.grad is None:  # a leaf the loss does not reach: zero, as in JAX
-                        p.grad = torch.zeros_like(p)
-                self.dp.reduce_grads([p.grad for p in leaves])
-            with span("step.optimizer"):
-                ok = None
-                if self._guard:
-                    ok = torch.isfinite(loss)
-                    for p in leaves:
-                        ok = ok & torch.isfinite(p.grad).all()
-                    ok = self.dp.all_reduce_scalars(ok.to(loss.dtype),
-                                                    op=torch.distributed.ReduceOp.MIN) > 0.5
-                self._adam_update(leaves, ok)
-                applied = (torch.ones((), dtype=torch.bool, device=loss.device) if ok is None
-                           else ok)
-            return loss.detach(), applied
+                    ok = ok & torch.isfinite(p.grad).all()
+                ok = self.dp.all_reduce_scalars(ok.to(loss.dtype),
+                                                op=torch.distributed.ReduceOp.MIN) > 0.5
+            self._adam_update(leaves, ok)
+            applied = (torch.ones((), dtype=torch.bool, device=loss.device) if ok is None
+                       else ok)
+        return loss.detach(), applied
+
+    def _eval_loss(self, u, y, weights, generator, noise):
+        return (self._loss(u, y, weights, generator, noise)[0],)
+
+    # --- CUDA graphs (step_graph) -------------------------------------------
+
+    def graph_counts(self) -> dict:
+        """How the train steps and test batches ran: ``graph_captures``,
+        ``graph_replays`` (a captured step runs by a replay too),
+        ``eager_steps`` and ``graph_fallbacks`` (captures that failed),
+        over the Trainer's life."""
+        return {"graph_captures": self.graph_captures, "graph_replays": self.graph_replays,
+                "eager_steps": self.eager_steps, "graph_fallbacks": self.graph_fallbacks}
+
+    @contextlib.contextmanager
+    def _own_stream(self):
+        """Run the block on the Trainer's own CUDA stream (a graphed
+        Trainer's), after the caller's work and before its next: eager
+        steps, captures and replays then share the stream's cuBLAS
+        workspaces, which a capture on another stream would allocate
+        anew."""
+        if not self._graph_on:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if caller == self._graph_stream:
+            yield
+            return
+        self._graph_stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._graph_stream):
+                yield
+        finally:
+            caller.wait_stream(self._graph_stream)
+
+    def _drop_graphs(self):
+        """Free every graph and its pool (the leaves or the state change)."""
+        for entry in self._graphs.values():
+            if isinstance(entry, StepGraph):
+                entry.graph.reset()
+        self._graphs, self._static, self._graph_pool = {}, {}, None
+
+    def _graph_tensors(self, split) -> list:
+        """What a split's step reads and writes besides its batch: the
+        leaves, and Adam's state for a train step."""
+        leaves = self.params.tensors()
+        if split == 1:
+            return leaves
+        return leaves + [t for p in leaves for t in self.optimizer.state[p].values()]
+
+    def _graphed(self, split, body, u, y, w, generator, noise):
+        """``body(u, y, w, generator, noise)``, a tuple of tensors: run as
+        a replay of the key's CUDA graph, captured here once the key may
+        be (:mod:`~cbfssm_tpu_torch.training.step_graph`), or eagerly.
+        A replay returns fresh tensors."""
+        if not self._graph_on:
+            self.eager_steps += 1
+            return body(u, y, w, generator, noise)
+        shapes = (split,) + tuple((tuple(t.shape), t.dtype) for t in (u, y, w))
+        tensors = self._graph_tensors(split)
+        key = shapes + (self.optimizer.param_groups[0]["lr"],) + tuple(map(id, tensors))
+        entry = self._graphs.get(key)
+        if isinstance(entry, StepGraph):
+            with span("data.batch"):
+                entry.batch.stage(self.model, u, y, w, generator, noise)
+            with span("step.replay"):
+                out = entry.replay()
+            self.graph_replays += 1
+            return out
+        # Adam makes a leaf's state at its first step: eager until then
+        ready = split == 1 or all(self.optimizer.state[p] for p in self.params.tensors())
+        if entry is FALLBACK or shapes not in self._warm_shapes or not ready:
+            self.eager_steps += 1
+            out = body(u, y, w, generator, noise)
+            self._warm_shapes.add(shapes)
+            return out
+        with span("data.batch"):
+            batch = StaticBatch(self.model, u, y, w)
+            batch.stage(self.model, u, y, w, generator, noise)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        try:
+            with span("step.capture"):
+                graph = StepGraph(body, batch, self._graph_pool, self._graph_stream, tensors)
+        except Exception as exc:  # noqa: BLE001 - any failure leaves the key eager
+            self._graphs[key] = FALLBACK
+            self.graph_fallbacks += 1
+            what = "train step" if split == 0 else "test batch"
+            print(f"CUDA graph capture of the {what} failed, it runs eagerly from now on: "
+                  f"{type(exc).__name__}: {exc}", file=sys.stderr)
+            self.eager_steps += 1
+            return body(batch.u, batch.y, batch.w, None, batch.noise)
+        self._graphs[key], self._static[split] = graph, batch
+        self.graph_captures += 1
+        with span("step.replay"):
+            out = graph.replay()
+        self.graph_replays += 1
+        return out
 
     def _adam_update(self, leaves, ok=None) -> None:
         """One Adam step (:func:`adam_update`) on the leaves' ``.grad``,
@@ -399,7 +530,7 @@ class Trainer:
         losses = []
         for u, y, w, gen, noise in self._batches(data_u, data_y, batch_size, False, epoch, 1):
             with span("eval.loss"):
-                losses.append(self._loss(u, y, w, gen, noise)[0])
+                losses.append(self._graphed(1, self._eval_loss, u, y, w, gen, noise)[0])
         return torch.stack(losses).mean()
 
     def _epoch_train(self, ds, batch_size, epoch):
@@ -444,7 +575,7 @@ class Trainer:
             )
 
     def train(self, ds, epochs: int, retrain: bool = False):
-        with span("trainer.train"):
+        with span("trainer.train"), self._own_stream():
             if self.dp.writer:
                 print("\nTraining...\n")
                 stamp_dataset(self.model_dir, ds)
@@ -493,7 +624,8 @@ class Trainer:
                 self.saver.flush(self.model_dir)
             self.dp.barrier()  # rank 0's files are on disk before any rank reads them
             done_extra = {"skipped_steps": self.skipped_steps} if self._guard else {}
-            self.metrics.log(event="done", epochs=epochs, best_train=lowest_train, **done_extra)
+            self.metrics.log(event="done", epochs=epochs, best_train=lowest_train, **done_extra,
+                             **self.graph_counts())
 
     def _dispatch_block(self, ds, batch_size, start: int, k: int, lowest_train: float):
         """Issue epochs [start, start + k) and return the block's handles

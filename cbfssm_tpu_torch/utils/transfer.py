@@ -4,7 +4,7 @@ A blocking copy between host memory and the card waits for every kernel
 queued before it (PyTorch synchronizes the stream around it), so one
 such copy inside a run of issued work stalls the host until the card
 has drained. These copies are non-blocking instead; off the card they
-are plain copies.
+are plain copies. :func:`constant` uploads a fixed table once.
 """
 
 from __future__ import annotations
@@ -21,6 +21,29 @@ def upload(a, device, dtype=None):
     tensors, which pinned memory does not."""
     t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a, dtype=dtype)
     return t.to(device, non_blocking=True)
+
+
+_CONSTANTS = {}
+
+
+def constant(key, make, device, dtype=None):
+    """:func:`upload` of the host array ``make()``, made once per ``(key,
+    device, dtype)`` and shared after: a fixed table that a step reads (a
+    mask, a sign vector) costs no host-to-device copy at each call, and a
+    CUDA graph's capture, which refuses a copy from pageable memory, can
+    take the step. ``key`` names the table and every number it depends
+    on; no caller writes into the tensor. It is a normal tensor even when
+    first asked for under ``torch.inference_mode``, so autograd may save
+    it later; under ``torch.export``'s fake tensors it is made anew at
+    each call, as before."""
+    if torch._guards.detect_fake_mode() is not None:
+        return upload(make(), device, dtype)
+    k = (key, torch.device(device), dtype)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[k] = upload(make(), device, dtype)
+    return t
 
 
 def host_copy(t):
