@@ -32,7 +32,9 @@ Port of ``cbfssm_tpu/ops/pallas/gp_predict.py``:
   Functions: a batched tensor has no ``data_ptr()``, so the rule moves
   each lane axis to the front and calls the lane kernels on the plain
   tensors beneath. Lane launches are counted apart, in
-  ``lane_launches``.
+  ``lane_launches``. A call while the stream is captured into a CUDA
+  graph launches nothing: it is counted in ``captures`` (``lane_captures``)
+  instead, and the graph runs the kernel at each replay.
 
 - Exported programs: :func:`gp_predict_op` registers the value path as
   the custom op ``cbfssm_torch::gp_predict`` (CUDA: the wrapper, counted;
@@ -169,7 +171,9 @@ def _run(name, wrapper, args, lanes: bool):
     return the plain version; with no rows (or no lanes) return empty
     outputs without a launch; else launch entry ``name`` (+ ``_lanes``
     with ``lanes``) + ``_f32``/``_f64`` on the inputs' stream and count
-    it in ``wrapper.launches`` (``wrapper.lane_launches`` with lanes).
+    it in ``wrapper.launches`` (``wrapper.lane_launches`` with lanes), or
+    in ``wrapper.captures`` (``wrapper.lane_captures``) while the stream
+    is captured into a CUDA graph.
     Raises before the launch if M is past the kernel's shared-memory cap
     (which holds per lane)."""
     n_lanes, n, m, di, d = _check(*args, lanes=lanes)
@@ -202,10 +206,9 @@ def _run(name, wrapper, args, lanes: bool):
             f"{entry} kernel launch failed ({err}: {msg}) at L={n_lanes} N={n} M={m} "
             f"DI={di} D={d}"
         )
-    if lanes:
-        wrapper.lane_launches += 1
-    else:
-        wrapper.launches += 1
+    counter = ("lane_" if lanes else "") + (
+        "captures" if torch.cuda.is_current_stream_capturing() else "launches")
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return tuple(outs)
 
 
@@ -237,6 +240,8 @@ def fused_predict_residuals(x, zs, inv_ls, kvar, kinv, alpha, var_q, lanes: bool
 
 fused_predict_residuals.launches = 0
 fused_predict_residuals.lane_launches = 0
+fused_predict_residuals.captures = 0
+fused_predict_residuals.lane_captures = 0
 # the lane forms of the two wrappers: L independent predicts in one launch
 fused_predict_lanes = functools.partial(_fused_predict_value, lanes=True)
 fused_predict_residuals_lanes = functools.partial(fused_predict_residuals, lanes=True)
@@ -426,3 +431,5 @@ def fused_predict(x, zs, inv_ls, kvar, kinv, alpha, var_q):
 
 fused_predict.launches = 0
 fused_predict.lane_launches = 0
+fused_predict.captures = 0
+fused_predict.lane_captures = 0

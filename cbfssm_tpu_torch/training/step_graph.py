@@ -7,19 +7,17 @@ captures the step (forward, ``loss.backward()``, the guard and
 ``adam_update``) once as a CUDA graph and then replays it: one launch a
 step. A test batch's loss is a second graph in the same memory pool.
 
-- A graph's key is the split, the batch's shapes and dtypes, the
-  learning rate and the identity of the tensors the step reads and
-  writes besides its batch (the leaves, and Adam's state for a train
-  step). The Trainer drops its graphs whenever it makes new leaves or
-  state (``init_state``, ``restore``, loading a checkpoint).
+- A graph's key is the split, the batch's shapes and dtypes and the
+  learning rate. The tensors the step reads and writes besides its
+  batch (the leaves and Adam's state) live as long as the Trainer,
+  which writes new values into them in place, so one graph serves every
+  ``train()``, ``restore()`` and checkpoint load.
 - A key is captured once its batch shapes have run eagerly in the
   Trainer (the first run makes the step's device constants and warms
-  cuBLAS and the allocator) and everything the step reads exists (Adam
-  makes its state at a leaf's first step): so the first step of a fresh
-  ``train()`` runs eagerly and the second is captured, and a resumed
-  ``train()`` captures its first. Every later step with the key is one
-  replay. The captured step also runs by a replay: a capture runs
-  nothing.
+  cuBLAS and the allocator): the first train step and test batch of a
+  Trainer's first ``train()`` run eagerly and the second are captured.
+  Every later step with the key is one replay. The captured step also
+  runs by a replay: a capture runs nothing.
 - The graph reads its batch from static buffers (:class:`StaticBatch`):
   the Trainer gathers the batch straight into them, and the draws are
   made into them from the batch's generator in the order the model
@@ -28,19 +26,14 @@ step. A test batch's loss is a second graph in the same memory pool.
   losses, leaves and Adam state are bitwise the eager path's.
 - A capture that fails leaves its key eager for good: the Trainer says
   so once on stderr and counts it.
-- A replay adds to the kernel wrappers' launch counters
-  (``fused_predict.launches``, ...) what its capture counted, so they
-  count what the card runs.
-- While a profiler records (``torch.profiler``), the host waits after
-  each replay until its kernel records can have reached the profiler:
-  without it, a trace stopped soon after a replay lost the replay's last
-  kernels in some traces on the H100 (so did the RoboMove benchmark cell's
-  traced run once in two).
+- The kernel wrappers count a call under capture in their ``captures``
+  (``fused_predict.captures``, ...), not as a launch; a graph keeps
+  what its capture recorded (:attr:`StepGraph.kernels`), and each
+  replay adds it to :data:`replayed`, the GP kernels the replays ran,
+  apart from the wrappers' launches (:func:`launches` sums the two).
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 
@@ -48,15 +41,16 @@ from cbfssm_tpu_torch.models.base import noise_tensors
 from cbfssm_tpu_torch.ops import fused_predict as fp
 
 FALLBACK = "fallback"  # a key whose capture failed: eager from then on
-# while a profiler records, the host's wait after a replay has ended: the
-# profiler receives a graph's kernel records some milliseconds after the
-# kernels ran, so a trace stopped sooner loses the replay's last kernels
-PROFILED_REPLAY_WAIT_S = 0.05
 
-# the kernel wrappers' launch counters
-_COUNTERS = ((fp.fused_predict, "launches"), (fp.fused_predict, "lane_launches"),
-             (fp.fused_predict_residuals, "launches"),
-             (fp.fused_predict_residuals, "lane_launches"))
+# each GP kernel: its wrapper and the prefix of its counters there
+# (``launches``, ``captures``)
+_KERNELS = {"gp_predict": (fp.fused_predict, ""),
+            "gp_predict_residuals": (fp.fused_predict_residuals, ""),
+            "gp_predict_lanes": (fp.fused_predict, "lane_"),
+            "gp_predict_residuals_lanes": (fp.fused_predict_residuals, "lane_")}
+
+# the GP kernel launches that graph replays ran, by kernel, over the process
+replayed = dict.fromkeys(_KERNELS, 0)
 
 
 def eligible(device, mesh, particle: bool) -> bool:
@@ -65,13 +59,14 @@ def eligible(device, mesh, particle: bool) -> bool:
     return torch.device(device).type == "cuda" and mesh is None and not particle
 
 
-def launch_counts() -> list:
-    return [getattr(f, name) for f, name in _COUNTERS]
+def _counts(name: str) -> dict:
+    return {k: getattr(f, prefix + name) for k, (f, prefix) in _KERNELS.items()}
 
 
-def add_launches(counts) -> None:
-    for (f, name), n in zip(_COUNTERS, counts):
-        setattr(f, name, getattr(f, name) + n)
+def launches() -> dict:
+    """The GP kernel launches the card ran over the process, by kernel:
+    the wrappers' own and the graph replays' (:data:`replayed`)."""
+    return {k: n + replayed[k] for k, n in _counts("launches").items()}
 
 
 class StaticBatch:
@@ -102,32 +97,25 @@ class StaticBatch:
 
 
 class StepGraph:
-    """A captured step: its graph, inputs and outputs, and the kernel
-    launches its capture counted."""
+    """A captured step: its graph, inputs and outputs, and the GP kernel
+    launches its capture recorded (``kernels``, by kernel)."""
 
-    def __init__(self, body, batch: StaticBatch, pool, stream, refs):
+    def __init__(self, body, batch: StaticBatch, pool, stream):
         """Capture ``body`` on ``batch`` into the memory ``pool`` on
-        ``stream`` (the graphs of one pool share their stream). ``refs``,
-        the tensors whose identity keys the graph, are held, so that
-        their ids stay theirs."""
-        self.batch, self.refs = batch, refs
+        ``stream`` (the graphs of one pool share their stream)."""
+        self.batch = batch
         self.graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
+        before = _counts("captures")
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 self.outputs = body(batch.u, batch.y, batch.w, None, batch.noise)
         finally:
-            self.launches = [a - b for a, b in zip(launch_counts(), before)]
-            add_launches([-n for n in self.launches])  # a capture runs nothing
+            self.kernels = {k: n - before[k] for k, n in _counts("captures").items()}
 
     def replay(self) -> tuple:
         """Run the step; returns fresh copies of its outputs (the graph's
-        own are overwritten by the next replay). While a profiler records,
-        wait for the replay and then :data:`PROFILED_REPLAY_WAIT_S`."""
+        own are overwritten by the next replay)."""
         self.graph.replay()
-        add_launches(self.launches)
-        out = tuple(t.clone() for t in self.outputs)
-        if torch._C._autograd._profiler_enabled():
-            torch.cuda.current_stream().synchronize()
-            time.sleep(PROFILED_REPLAY_WAIT_S)
-        return out
+        for k, n in self.kernels.items():
+            replayed[k] += n
+        return tuple(t.clone() for t in self.outputs)

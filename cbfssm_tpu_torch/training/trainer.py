@@ -69,6 +69,7 @@ from cbfssm_tpu_torch.parallel import DataParallel, ParticleParallel, noise_rows
 from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint, step_graph
 from cbfssm_tpu_torch.training.step_graph import FALLBACK, StaticBatch, StepGraph
+from cbfssm_tpu_torch.utils import profiling
 from cbfssm_tpu_torch.utils.profiling import MetricsLogger, span, trace
 from cbfssm_tpu_torch.utils.transfer import host_copy, ready_event, upload
 
@@ -261,32 +262,57 @@ class Trainer:
     # --- state -----------------------------------------------------------
 
     def _fresh_state(self):
-        """Init params as leaves that require grad, and a new Adam with
+        """Init params in leaves that require grad, and a new Adam with
         optax's ``adam`` defaults (a ``torch.optim.Adam`` that holds the
-        state in its format and is stepped by :meth:`_adam_update`)."""
-        self._drop_graphs()
+        state in its format and is stepped by :meth:`_adam_update`) at
+        step 0 with zero moments, the state its first step would make.
+        The leaves and the state's tensors are made at the first call and
+        written in place after it, so that they live as long as the
+        Trainer (its CUDA graphs read and write them)."""
         if self._init_params is not None:
             params = self._init_params.to(device=self.device, dtype=self.model.dtype)
         else:
             params = self.model.init(torch.Generator(device=self.device).manual_seed(self.seed))
-        leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
-        self.params = params.with_tensors(leaves)
+        if self.params is None:
+            self.params = params.with_tensors(
+                [t.detach().clone().requires_grad_(True) for t in params.tensors()])
+            states = [{"step": torch.zeros((), dtype=torch.float32, device=p.device),
+                       "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+                      for p in self.params.tensors()]
+        else:
+            states = [self.optimizer.state[p] for p in self.params.tensors()]
+            with torch.no_grad():
+                for leaf, t in zip(self.params.tensors(), params.tensors(), strict=True):
+                    leaf.copy_(t)
+                for state in states:
+                    for t in state.values():
+                        t.zero_()
+        leaves = self.params.tensors()
         self.optimizer = torch.optim.Adam(
             leaves, lr=float(self.model.config.learning_rate), betas=(BETA1, BETA2), eps=EPS
         )
+        for p, state in zip(leaves, states):
+            self.optimizer.state[p] = state
 
     def _load(self, name: str):
+        """The checkpoint's params and Adam state (its hyperparameters
+        too), written into the Trainer's own tensors."""
         tree = checkpoint.restore(os.path.join(self.model_dir, name), map_location=self.device)
         leaves = self.params.tensors()
         if len(tree["params"]) != len(leaves):
             raise ValueError(f"{name} holds {len(tree['params'])} params, the model {len(leaves)}")
-        with torch.no_grad():
-            for leaf, saved in zip(leaves, tree["params"]):
-                leaf.copy_(saved)
-        self._drop_graphs()  # the state is new
+        states = [self.optimizer.state[p] for p in leaves]
         self.optimizer.load_state_dict(tree["opt_state"])
-        for state in self.optimizer.state.values():  # :meth:`_adam_update` reads it there
-            state["step"] = state["step"].to(self.device)
+        with torch.no_grad():
+            for leaf, saved, state in zip(leaves, tree["params"], states):
+                leaf.copy_(saved)
+                loaded = self.optimizer.state[leaf]  # none before a leaf's first step
+                for key, t in state.items():
+                    if key in loaded:
+                        t.copy_(loaded[key])
+                    else:
+                        t.zero_()
+                self.optimizer.state[leaf] = state
 
     def init_state(self, retrain: bool = False):
         self._fresh_state()
@@ -295,7 +321,8 @@ class Trainer:
             self._load(checkpoint.LAST)
 
     def restore(self, name: str = checkpoint.BEST):
-        """Load a checkpoint into the trainer's state; returns params."""
+        """Load a checkpoint into the trainer's state; returns its params,
+        whose leaves a later ``train()`` or ``restore()`` overwrites."""
         self.saver.flush(self.model_dir)  # pending writes must land first
         self._fresh_state()
         self._load(name)
@@ -438,21 +465,6 @@ class Trainer:
         finally:
             caller.wait_stream(self._graph_stream)
 
-    def _drop_graphs(self):
-        """Free every graph and its pool (the leaves or the state change)."""
-        for entry in self._graphs.values():
-            if isinstance(entry, StepGraph):
-                entry.graph.reset()
-        self._graphs, self._static, self._graph_pool = {}, {}, None
-
-    def _graph_tensors(self, split) -> list:
-        """What a split's step reads and writes besides its batch: the
-        leaves, and Adam's state for a train step."""
-        leaves = self.params.tensors()
-        if split == 1:
-            return leaves
-        return leaves + [t for p in leaves for t in self.optimizer.state[p].values()]
-
     def _graphed(self, split, body, u, y, w, generator, noise):
         """``body(u, y, w, generator, noise)``, a tuple of tensors: run as
         a replay of the key's CUDA graph, captured here once the key may
@@ -462,8 +474,7 @@ class Trainer:
             self.eager_steps += 1
             return body(u, y, w, generator, noise)
         shapes = (split,) + tuple((tuple(t.shape), t.dtype) for t in (u, y, w))
-        tensors = self._graph_tensors(split)
-        key = shapes + (self.optimizer.param_groups[0]["lr"],) + tuple(map(id, tensors))
+        key = shapes + (self.optimizer.param_groups[0]["lr"],)
         entry = self._graphs.get(key)
         if isinstance(entry, StepGraph):
             with span("data.batch"):
@@ -472,9 +483,7 @@ class Trainer:
                 out = entry.replay()
             self.graph_replays += 1
             return out
-        # Adam makes a leaf's state at its first step: eager until then
-        ready = split == 1 or all(self.optimizer.state[p] for p in self.params.tensors())
-        if entry is FALLBACK or shapes not in self._warm_shapes or not ready:
+        if entry is FALLBACK or shapes not in self._warm_shapes:
             self.eager_steps += 1
             out = body(u, y, w, generator, noise)
             self._warm_shapes.add(shapes)
@@ -486,7 +495,7 @@ class Trainer:
             self._graph_pool = torch.cuda.graph_pool_handle()
         try:
             with span("step.capture"):
-                graph = StepGraph(body, batch, self._graph_pool, self._graph_stream, tensors)
+                graph = StepGraph(body, batch, self._graph_pool, self._graph_stream)
         except Exception as exc:  # noqa: BLE001 - any failure leaves the key eager
             self._graphs[key] = FALLBACK
             self.graph_fallbacks += 1
@@ -514,6 +523,10 @@ class Trainer:
         """Issue one training epoch; returns its mean loss and (with the
         guard) its skipped-batch count as device tensors."""
         data_u, data_y = self._stage("train", ds.train_in_batch, ds.train_out_batch)
+        if self._graphs and self._noise_fn is not None and profiling.recording():
+            # a caller may stop its profiler at an epoch's start (in the
+            # noise_fn of its first batch): let it hold the replays' records
+            profiling.settle()
         losses, applied = [], []
         for u, y, w, gen, noise in self._batches(data_u, data_y, batch_size, True, epoch, 0):
             loss, ok = self.train_step(u, y, w, gen, noise)
@@ -655,9 +668,8 @@ class Trainer:
                     params, opt = self._snapshot()
                     best_params = [torch.where(improved, n, b)
                                    for n, b in zip(params, best_params)]
-                    # a leaf's Adam state appears at its first step
                     best_opt = {i: {key: torch.where(improved, n, best_opt[i][key])
-                                    if i in best_opt else n for key, n in st.items()}
+                                    for key, n in st.items()}
                                 for i, st in opt.items()}
         with span("trainer.block"):
             host = {
@@ -674,11 +686,8 @@ class Trainer:
         """Copies of the live params and of the optimizer's per-leaf state
         on the device, in ``state_dict()``'s leaf numbering."""
         params = [t.detach().clone() for t in self.params.tensors()]
-        opt = {}
-        for i, p in enumerate(self.params.tensors()):
-            state = self.optimizer.state.get(p)
-            if state:
-                opt[i] = {key: t.clone() for key, t in state.items()}
+        opt = {i: {key: t.clone() for key, t in self.optimizer.state[p].items()}
+               for i, p in enumerate(self.params.tensors())}
         return params, opt
 
     def _process_block(self, handles, lowest_train: float, steps_per_epoch: int,

@@ -44,6 +44,23 @@ from torch.utils._python_dispatch import TorchDispatchMode
 # the discarded first cycle of :func:`trace` on the card
 _WARM_UP_KERNELS = 64
 _WARM_UP_S = 0.05
+_SETTLE_S = 0.05
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` trace is recording in this process."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def settle():
+    """Wait until a recording profiler can have received the records of
+    the card's work issued so far: a device sync, then ``_SETTLE_S``.
+    The profiler receives a CUDA graph's kernel records some milliseconds
+    after the kernels ran: on an H100 host a trace stopped right after
+    the sync lost records of a replayed epoch's last kernels (122 of its
+    7,581 GP-predict kernels in one RoboMove trace)."""
+    torch.cuda.synchronize()
+    time.sleep(_SETTLE_S)
 
 
 @contextlib.contextmanager
@@ -62,7 +79,8 @@ def trace(log_dir: str):
     kernel events of the block, more with every trace the process had
     taken; ``scripts/torch_trace_warmup.py`` compares the two forms.
     Inside the block each :func:`span` is also a ``record_function``
-    range of its name, so the trace shows the program's phases."""
+    range of its name, so the trace shows the program's phases. The
+    block ends with :func:`settle`."""
     from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
@@ -82,7 +100,7 @@ def trace(log_dir: str):
         try:
             yield prof
             if cuda:
-                torch.cuda.synchronize()
+                settle()
         finally:
             _SPANS.annotate -= 1
             _SPANS.refresh()

@@ -291,7 +291,10 @@ held on both ranks and listed from rank 0, ``dp_gloo_2``,
 cards ``pool_mesh_<n>gpu``; ``train_epd1``, ``train_epd2``,
 ``lanes_epd1``, ``lanes_epd2``):
 each sets the launch counts of all four kernels to 0 just before it
-(``reset_launches``) and reads all four just after (``launch_counts``),
+(``reset_launches``) and reads all four just after (``launch_counts``:
+the wrappers' own launches and those a Trainer's CUDA graph replays
+ran, ``step_graph.launches``; each profiled train step, a replay on a
+graphed Trainer, holds its count against the kernels of its trace),
 and the kernels line lists them by path (``launches_by_path``;
 ``launches`` is their sum). The three paths on ``gp_impl='solve_free'``
 (``SOLVE_FREE_PATHS``) launch none of the four kernels, and are listed
@@ -404,22 +407,28 @@ COUNTERS = "(gp_predict, gp_predict_residuals, gp_predict_lanes, gp_predict_resi
 
 
 def reset_launches():
-    """Sets the launch counts of all four kernel wrappers to 0."""
+    """Sets the launch counts of all four kernels to 0: the wrappers' and
+    the graph replays' (``step_graph.replayed``)."""
     from cbfssm_tpu_torch.ops import fused_predict as fp
+    from cbfssm_tpu_torch.training import step_graph
 
     sync()
     fp.fused_predict.launches = fp.fused_predict_residuals.launches = 0
     fp.fused_predict.lane_launches = fp.fused_predict_residuals.lane_launches = 0
+    for k in step_graph.replayed:
+        step_graph.replayed[k] = 0
 
 
 def launch_counts() -> tuple:
     """The launches of all four kernels (in the order of ``COUNTERS``)
-    since :func:`reset_launches`."""
-    from cbfssm_tpu_torch.ops import fused_predict as fp
+    since :func:`reset_launches`: the wrappers' own and the graph
+    replays' (``step_graph.launches``)."""
+    from cbfssm_tpu_torch.training import step_graph
 
     sync()
-    return (fp.fused_predict.launches, fp.fused_predict_residuals.launches,
-            fp.fused_predict.lane_launches, fp.fused_predict_residuals.lane_launches)
+    counts = step_graph.launches()
+    return tuple(counts[k] for k in ("gp_predict", "gp_predict_residuals", "gp_predict_lanes",
+                                     "gp_predict_residuals_lanes"))
 
 
 def read_launches(where: str, want, rule: str) -> tuple:
@@ -797,18 +806,23 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
                  via_trace: bool = False):
     """One more ``train_step`` on ``args`` under ``torch.profiler`` (with
     ``via_trace`` under the port's ``utils.profiling.trace``, whose file
-    goes to a temporary directory): its device kernels, their summed
-    time (one stream, so the busy time), the busy share of the median
-    step ``step_ms`` and the largest kernels by device time. Returns
-    (kernels, busy ms)."""
+    goes to a temporary directory), settled before the profiler stops
+    (``profiling.settle``): its device kernels, their summed time (one
+    stream, so the busy time), the busy share of the median step
+    ``step_ms`` and the largest kernels by device time. The step's GP
+    kernels in the trace must be the launches :func:`launch_counts`
+    counts for it; on a graphed Trainer the step is a replay, so its
+    graph's count is held against the trace. Returns (kernels, busy ms)."""
     import collections
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from cbfssm_tpu_torch.utils.profiling import trace
+    from cbfssm_tpu_torch.utils.profiling import settle, trace
 
+    replays = getattr(trainer, "graph_replays", None)  # a MultiSeedTrainer graphs nothing
+    before = launch_counts()
     with contextlib.ExitStack() as stack:
         if via_trace:
             log_dir = stack.enter_context(tempfile.TemporaryDirectory(dir=ROOT / "build"))
@@ -817,7 +831,10 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
             prof = stack.enter_context(
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         trainer.train_step(*args)
-        sync()
+        settle()
+    ran = tuple(a - b for a, b in zip(launch_counts(), before))
+    if getattr(trainer, "_graph_on", False) and trainer.graph_replays != replays + 1:
+        fail(f"profile {label}: the profiled step of a graphed Trainer was not a replay")
     # under ``trace`` the Trainer's spans are also ranges on the card's
     # timeline (user annotations), which are not kernels
     kernels = [e for e in prof.events()
@@ -831,10 +848,16 @@ def profile_step(trainer, args, label: str, step_ms: float, card: str, top: int 
           f"busy share of the median step {100 * busy_ms / step_ms:.1f} %; {card}", flush=True)
     # the fused GP-predict kernels' share: gp_predict_kernel<T, true> is
     # the residual kernel, <T, false> the value kernel
+    traced = {}
     for kind, tag in (("residual", ", true>"), ("value", ", false>")):
         hits = [v for name, v in by_name.items() if "gp_predict_kernel<" in name and tag in name]
+        traced[kind] = sum(v[0] for v in hits)
         print(f"  gp_predict {kind} kernel in the step: {sum(v[1] for v in hits):.3f} ms in "
-              f"{sum(v[0] for v in hits)} launches", flush=True)
+              f"{traced[kind]} launches", flush=True)
+    # one kernel template serves the lanes too
+    if (traced["value"], traced["residual"]) != (ran[0] + ran[2], ran[1] + ran[3]):
+        fail(f"profile {label}: traced gp_predict / residual launches "
+             f"{(traced['value'], traced['residual'])}, counted {ran}")
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {ms:9.3f} ms  {count:6d} x  {name[:110]}", flush=True)
     return len(kernels), busy_ms

@@ -8,8 +8,8 @@ Builds the cell's data, model and weights as the benchmark does
 (``benchmark.mixes.train.Run``), then trains ``--epochs`` epochs of the
 whole dataset twice from the same weights and seed, eager first: each
 run's per-epoch seconds, device memory over the run's start (its peak,
-its end, after each of the first steps), ``graph_counts()`` and kernel
-launches; whether the per-epoch losses, the leaves and Adam's state are
+its end, after each of the first steps), ``graph_counts()`` and GP
+kernel launches (``step_graph.launches``); whether the per-epoch losses, the leaves and Adam's state are
 bitwise equal; and, in a CUDA-only profiler trace of the benchmark's
 kind (``benchmark.tracing.Trace``) started after the capture,
 ``--trace-steps`` further train steps of each run: the kernels and
@@ -34,6 +34,7 @@ import torch  # noqa: E402
 from benchmark import harness, tracing  # noqa: E402
 from benchmark.mixes.train import Run  # noqa: E402
 from cbfssm_tpu_torch.training import Trainer, step_graph  # noqa: E402
+from cbfssm_tpu_torch.utils import profiling  # noqa: E402
 
 # ``--device cpu --tiny``: a rehearsal at the benchmark tests' sizes
 TINY = {
@@ -73,14 +74,14 @@ def train(run, graphed: bool, epochs: int, trace_steps: int) -> dict:
         return out
 
     tr.train_step = noted_step
-    before = step_graph.launch_counts()
+    before = step_graph.launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
         tr.train(run.ds, epochs)
     sync(run.device)
     seconds = time.perf_counter() - t0
     del tr.train_step
-    launches = [a - b for a, b in zip(step_graph.launch_counts(), before)]
+    launches = {k: n - before[k] for k, n in step_graph.launches().items()}
     with open(metrics) as f:
         events = [json.loads(line) for line in f]
     out = {
@@ -103,6 +104,8 @@ def train(run, graphed: bool, epochs: int, trace_steps: int) -> dict:
     trace.start()
     for _ in range(trace_steps):
         tr.train_step(*next(batches))
+    if cuda:
+        profiling.settle()
     summary = trace.stop()
     out["trace"] = {"steps": trace_steps, "kernels_per_step": summary["kernels"] / trace_steps,
                     "device_ms_per_step": 1e3 * summary["busy_s"] / trace_steps,

@@ -13,20 +13,28 @@ card with ``--noconftest``):
 - the eligibility rule (a CUDA device, no mesh, no ``ParticleParallel``);
   a CPU Trainer runs every step and test batch eagerly and counts them,
   in ``graph_counts()`` and the ``done`` event of ``metrics.jsonl``;
-- ``step.capture`` and ``step.replay`` have phases in ``SPAN_PHASES``.
+- ``step.capture`` and ``step.replay`` have phases in ``SPAN_PHASES``;
+- the leaves and Adam's state are the Trainer's for its life: ``train()``,
+  ``retrain=True`` and ``restore()`` write into them the numbers a new
+  Trainer's would hold;
+- ``profiling.recording()`` follows the profiler.
 
 On the card (``cuda``): a graphed Trainer against the same Trainer made
 ineligible, for CBFSSM (kernel; ``solve_free`` with the hand adjoint),
 CBFSSMHALF, PRSSM and Voliro, at ``epochs_per_dispatch`` 1 and 4 with a
 ragged last batch: per-epoch losses, leaves, Adam state and both
-checkpoints bitwise equal, no fallback, as many kernel launches; a
-guard-skipped non-finite batch (through ``noise_fn``); ``retrain=True``
-and ``restore()`` capturing anew; a profiler trace started after the
-capture sees every kernel of a replay.
+checkpoints bitwise equal, no fallback, as many GP kernel launches (the
+wrappers' own and the replays'); a guard-skipped non-finite batch
+(through ``noise_fn``); ``retrain=True`` and ``restore()`` replaying the
+graphs captured before; a profiler trace started after the capture and
+settled before its stop sees every kernel of a replay, its GP kernels as
+many as the graph says it replayed.
 """
 
+import copy
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -37,7 +45,7 @@ from cbfssm_tpu_torch.models.base import noise_tensors
 from cbfssm_tpu_torch.ops import quaternion
 from cbfssm_tpu_torch.training import Trainer, checkpoint, step_graph
 from cbfssm_tpu_torch.training.trainer import SPAN_PHASES
-from cbfssm_tpu_torch.utils import transfer
+from cbfssm_tpu_torch.utils import profiling, transfer
 import torch_parallel_workers as workers  # tests/ (pytest puts it on sys.path)
 from test_torch_distributed import smoke_arrays, smoke_config
 
@@ -252,16 +260,55 @@ def test_capture_and_replay_spans_have_phases():
     assert SPAN_PHASES["step.replay"] == "replay"
 
 
-def test_launch_counts_round_trip():
-    from cbfssm_tpu_torch.ops import fused_predict as fp
+def tensors_of(tr):
+    """The Trainer's leaves and Adam state tensors."""
+    return tr.params.tensors() + [t for p in tr.params.tensors()
+                                  for t in tr.optimizer.state[p].values()]
 
-    before = step_graph.launch_counts()
-    step_graph.add_launches([3, 0, 5, 1])
-    assert fp.fused_predict.launches == before[0] + 3
-    assert fp.fused_predict_residuals.launches == before[2] + 5
-    assert fp.fused_predict_residuals.lane_launches == before[3] + 1
-    step_graph.add_launches([-3, 0, -5, -1])
-    assert step_graph.launch_counts() == before
+
+@pytest.mark.parametrize("then", ["retrain", "restore", "init_state"])
+def test_leaves_and_adam_state_live_as_long_as_the_trainer(tmp_path, ds, then):
+    """After a ``train()`` the Trainer's tensors are written in place by
+    a retrain, a ``restore()`` or a fresh ``init_state()``, to bitwise the
+    numbers a new Trainer holds after the same call (Adam's state at step
+    0 with zero moments before the first step)."""
+    def make(path):
+        return Trainer(CBFSSM(smoke_config(), device="cpu"), path, seed=2,
+                       epochs_per_dispatch=1)
+
+    path = str(tmp_path / "m")
+    tr = make(path)
+    tr.init_state()
+    assert all(not t.any() for p in tr.params.tensors() for t in tr.optimizer.state[p].values())
+    tr.train(ds, 2)
+    tr.saver.flush(path)
+    ids = [id(t) for t in tensors_of(tr)]
+    if then == "retrain":
+        shutil.copytree(path, str(tmp_path / "copy"))
+        fresh = make(str(tmp_path / "copy"))
+        fresh._rng = copy.deepcopy(tr._rng)  # the same shuffles
+        tr.train(ds, 1, retrain=True)
+        fresh.train(ds, 1, retrain=True)
+        assert tr.train_all[-1] == fresh.train_all[-1]
+    elif then == "restore":
+        tr.restore(checkpoint.BEST)
+        fresh = make(path)
+        fresh.restore(checkpoint.BEST)
+    else:
+        tr.init_state()
+        fresh = make(str(tmp_path / "fresh"))
+        fresh.init_state()
+    assert [id(t) for t in tensors_of(tr)] == ids
+    assert all(torch.equal(a, b) for a, b in zip(tensors_of(tr), tensors_of(fresh), strict=True))
+
+
+def test_recording_follows_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    assert not profiling.recording()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.recording()
+    assert not profiling.recording()
 
 
 # --- on the card ----------------------------------------------------------------------
@@ -288,19 +335,23 @@ def state(tr):
                 lambda t: t.cpu() if torch.is_tensor(t) else t, tr.optimizer.state_dict())}
 
 
+def counted(call):
+    """``call()``'s GP kernel launches on the card (``step_graph.launches``)."""
+    before = step_graph.launches()
+    call()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in step_graph.launches().items()}
+
+
 def train_both(tmp_path, make, data, epochs, **kwargs):
     """The same Trainer twice, made ineligible and graphed: each run's
-    Trainer, directory and kernel launches."""
+    Trainer, directory and GP kernel launches."""
     runs = {}
     for graphed in (False, True):
         path = str(tmp_path / ("graph" if graphed else "eager"))
         tr = make(path)
         tr._graph_on = graphed
-        before = step_graph.launch_counts()
-        tr.train(data, epochs, **kwargs)
-        torch.cuda.synchronize()
-        launches = [a - b for a, b in zip(step_graph.launch_counts(), before)]
-        runs[graphed] = (tr, path, launches)
+        runs[graphed] = (tr, path, counted(lambda: tr.train(data, epochs, **kwargs)))
     return runs[False], runs[True]
 
 
@@ -356,61 +407,66 @@ def test_cuda_graph_guard_skips_a_nonfinite_batch(cuda_device, tmp_path, ds):
 
 
 @pytest.mark.cuda
-def test_cuda_graph_captures_anew_after_retrain_and_restore(cuda_device, tmp_path, ds):
-    """``retrain=True`` resumes with new leaves and state: its first step
-    is captured (the shapes ran before), and the run equals the eager
-    one's; ``restore()`` drops the graphs too."""
+def test_cuda_graph_outlives_retrain_and_restore(cuda_device, tmp_path, ds):
+    """``retrain=True`` loads the checkpoint into the Trainer's own
+    tensors: every step of it replays the graphs the first ``train()``
+    captured, and the run equals the eager one's; after ``restore()`` a
+    train step is a replay too, with the eager Trainer's loss."""
     def make(path):
         return Trainer(MODELS["cbfssm_pallas"]("cuda"), path, seed=5, epochs_per_dispatch=1)
 
     first = train_both(tmp_path, make, ds, 2)
-    again = []
-    for tr, path, _ in first:
-        before = step_graph.launch_counts()
-        tr.train(ds, 2, retrain=True)
-        torch.cuda.synchronize()
-        again.append((tr, path, [a - b for a, b in zip(step_graph.launch_counts(), before)]))
+    again = [(tr, path, counted(lambda tr=tr: tr.train(ds, 2, retrain=True)))
+             for tr, path, _ in first]
     assert_runs_equal(*again)
     tr = again[1][0]
-    counts = tr.graph_counts()
-    assert counts["graph_captures"] == 4 and counts["graph_fallbacks"] == 0
-    assert counts["eager_steps"] == 2  # the first train() alone
-    tr.restore(checkpoint.BEST)
-    assert tr._graphs == {} and tr._static == {}
-    loss_g = tr.train_step(*next(tr._batches(*tr._stage("train", ds.train_in_batch,
-                                                                 ds.train_out_batch),
-                                             8, True, 9, 0)))[0]
-    assert tr.graph_counts()["graph_captures"] == 5  # resumed state: captured at once
-    assert torch.isfinite(loss_g)
+    per_epoch = -(-len(ds.train_in_batch) // 8) + -(-len(ds.test_in_batch) // 8)
+    assert tr.graph_counts() == {"graph_captures": 2, "graph_replays": 4 * per_epoch - 2,
+                                 "eager_steps": 2, "graph_fallbacks": 0}
+    losses = []
+    for tr, _, _ in again:
+        tr.restore(checkpoint.BEST)
+        batch = next(tr._batches(*tr._stage("train", ds.train_in_batch, ds.train_out_batch),
+                                 8, True, 9, 0))
+        losses.append(tr.train_step(*batch)[0])
+    assert tr.graph_counts()["graph_captures"] == 2
+    assert tr.graph_counts()["graph_replays"] == 4 * per_epoch - 1
+    assert torch.isfinite(losses[1]) and torch.equal(losses[0], losses[1])
 
 
 @pytest.mark.cuda
 def test_cuda_trace_after_capture_sees_the_replayed_kernels(cuda_device, tmp_path, ds):
     """A CUDA-only profiler trace (the benchmark's kind) started after the
-    capture records each kernel of a replayed epoch: as many as an eager
-    epoch's, and the replay's own copies. (A graph instantiated before
-    the process's first trace runs its device-to-device copies as the
-    ``memcpy*`` kernels of CUDA's own, which the eager step runs as
-    ``Memcpy`` rows; they are not counted here.)"""
+    capture and settled before its stop (``profiling.settle``) records
+    each kernel of a replayed epoch: as many as an eager epoch's, and the
+    replay's own copies; its GP kernels are the launches the card ran by
+    ``step_graph.launches``, the replays' by what each graph's capture
+    recorded. (A graph instantiated before the process's first trace runs
+    its device-to-device copies as the ``memcpy*`` kernels of CUDA's
+    own, which the eager step runs as ``Memcpy`` rows; they are not
+    counted here.)"""
     from benchmark import tracing
 
     def kernels(tr, epoch):
         trace = tracing.Trace()
         trace.start()
-        tr._train_epoch(ds, 8, epoch)
+        ran = counted(lambda: tr._train_epoch(ds, 8, epoch))
+        profiling.settle()
         summary = trace.stop()
-        copies = sum(n for name, (n, _) in summary["device_ops_by_name"].items()
-                     if name.startswith("memcpy"))
+        by_name = summary["device_ops_by_name"]
+        copies = sum(n for name, (n, _) in by_name.items() if name.startswith("memcpy"))
+        gp = sum(n for name, (n, _) in by_name.items() if "gp_predict_kernel<" in name)
+        assert gp == sum(ran.values()) > 0
         return summary["kernels"] - copies
 
-    counted = {}
+    kernel_counts = {}
     for graphed in (False, True):
         tr = Trainer(MODELS["cbfssm_pallas"]("cuda"), str(tmp_path / str(graphed)), seed=6,
                      epochs_per_dispatch=1)
         tr._graph_on = graphed
         tr.train(ds, 2)
-        counted[graphed] = kernels(tr, 2)
+        kernel_counts[graphed] = kernels(tr, 2)
         assert tr.graph_fallbacks == 0
     steps = -(-len(ds.train_in_batch) // 8)
     # a replayed step adds its copy of w and the copies of loss and applied
-    assert 0 < counted[False] <= counted[True] <= counted[False] + 3 * steps
+    assert 0 < kernel_counts[False] <= kernel_counts[True] <= kernel_counts[False] + 3 * steps
