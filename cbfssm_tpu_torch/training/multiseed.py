@@ -64,6 +64,17 @@ back (logging, the gathers of a mesh, the best checkpoint). ``best_*``
 then point at the last block the host has read. Both schedules issue
 the same operations in the same order: bitwise equal losses and
 checkpoints.
+
+Spans and counters, as in ``Trainer``: the layers are marked with
+:func:`~cbfssm_tpu_torch.utils.profiling.span` under the Trainer's span
+names (``trainer.SPAN_PHASES``), one ``step`` span a lane-batched train
+step (``step.forward``: the vmapped :meth:`MultiSeedTrainer.lane_losses`;
+``step.backward``; ``step.optimizer``: zeroing, the per-lane guard and
+``LaneAdam.step``), one ``eval.loss`` span a test batch, and the mesh's
+gathers under ``trainer.readback``; nothing while no caller records
+spans. :meth:`MultiSeedTrainer.counts` gives the steps, the lane steps,
+the skipped lane steps and the lane GP kernel launches issued inside
+``train``, and goes into ``metrics.jsonl``'s ``done`` event.
 """
 
 from __future__ import annotations
@@ -79,13 +90,14 @@ import torch.distributed as dist
 from torch.func import vmap
 
 from cbfssm_tpu_torch.config import check_epochs_per_dispatch
+from cbfssm_tpu_torch.ops import fused_predict as fp
 from cbfssm_tpu_torch.parallel import distributed
 from cbfssm_tpu_torch.parallel.sharding import check_mesh
 from cbfssm_tpu_torch.training import checkpoint
 from cbfssm_tpu_torch.training.trainer import (BETA1, BETA2, EPS, adam_leaf, epoch_indices,
                                                resolve_epochs_per_dispatch, stamp_dataset,
                                                stamp_model_meta)
-from cbfssm_tpu_torch.utils.profiling import MetricsLogger
+from cbfssm_tpu_torch.utils.profiling import MetricsLogger, span
 from cbfssm_tpu_torch.utils.transfer import host_copy, ready_event, upload
 
 # Stacked [n_seeds, ...] checkpoints get their own names, so that a
@@ -107,6 +119,14 @@ def lane_batch_seed(seed: int, epoch: int, split: int, lane: int, i: int) -> int
     """The seed of lane ``lane``'s noise for batch ``i`` of ``split`` (0
     train, 1 test) in ``epoch``."""
     return _seed([seed + 1, epoch, split, lane, i])
+
+
+def lane_launches() -> dict:
+    """The lane GP kernel launches of the process so far, by entry:
+    ``gp_predict_residuals_lanes`` (a train step's) and
+    ``gp_predict_lanes`` (the test loss's and the predictions')."""
+    return {"residual_lane_launches": fp.fused_predict_residuals.lane_launches,
+            "value_lane_launches": fp.fused_predict.lane_launches}
 
 
 def stack_noise(noises: list) -> list:
@@ -245,6 +265,9 @@ class MultiSeedTrainer:
         self.saver = checkpoint.shared_saver()
         self._guard = bool(model.config.skip_nonfinite_updates)
         self.skipped_steps = 0  # cumulative skipped batches, all lanes
+        self.train_steps = 0  # lane-batched Adam steps
+        self.lane_steps = 0  # train steps x lanes held
+        self._launches = dict.fromkeys(lane_launches(), 0)  # issued inside train()
         self._init_params = init_params
         self._noise_fn = noise_fn
         # trailing leaves that are not trained (a sweep's hyperparameters)
@@ -375,35 +398,46 @@ class MultiSeedTrainer:
         """One Adam step of every lane on its batch (``u``/``y``/``weights``
         with a leading lane axis). Returns ``(losses [n_seeds], applied
         [n_seeds] bool)``, the losses detached."""
-        trainable = self._trainable(self.params)
-        for p in trainable:
-            p.grad = None
-        losses = self.lane_losses(self.params, u, y, weights, noises)
-        losses.sum().backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in trainable]
-        ok = None
-        if self._guard:
-            ok = torch.isfinite(losses.detach())
-            for g in grads:
-                ok = ok & torch.isfinite(g).reshape(g.shape[0], -1).all(dim=1)
-        self.opt.step(grads, ok)
-        applied = torch.ones_like(losses, dtype=torch.bool) if ok is None else ok
-        return losses.detach(), applied
+        with span("step"):
+            trainable = self._trainable(self.params)
+            with span("step.optimizer"):
+                for p in trainable:
+                    p.grad = None
+            with span("step.forward"):
+                losses = self.lane_losses(self.params, u, y, weights, noises)
+            with span("step.backward"):
+                losses.sum().backward()
+                grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                         for p in trainable]
+            with span("step.optimizer"):
+                ok = None
+                if self._guard:
+                    ok = torch.isfinite(losses.detach())
+                    for g in grads:
+                        ok = ok & torch.isfinite(g).reshape(g.shape[0], -1).all(dim=1)
+                self.opt.step(grads, ok)
+                applied = torch.ones_like(losses, dtype=torch.bool) if ok is None else ok
+            self.train_steps += 1
+            self.lane_steps += losses.shape[0]
+            return losses.detach(), applied
 
     def _epoch_train(self, ds, batch_size, epoch):
         """Issue one training epoch of every held lane; returns the lanes'
         mean losses and skipped-batch counts ([lanes] each) on the
         device."""
-        data_u, data_y = self._stage("train", ds.train_in_batch, ds.train_out_batch)
-        idx, w = self._epoch_indices(data_u.shape[0], batch_size, shuffle=True)
-        idx_d = upload(idx.astype(np.int64), self.device)
-        w_d = upload(w, self.device)
+        with span("data.epoch"):
+            data_u, data_y = self._stage("train", ds.train_in_batch, ds.train_out_batch)
+            idx, w = self._epoch_indices(data_u.shape[0], batch_size, shuffle=True)
+            idx_d = upload(idx.astype(np.int64), self.device)
+            w_d = upload(w, self.device)
         t_len = data_u.shape[1]
         losses, applied = [], []
         for i in range(idx.shape[1]):
-            rows = idx_d[:, i]  # [n_seeds, B]
-            loss, ok = self.train_step(data_u[rows], data_y[rows], w_d[:, i],
-                                       self._noises(epoch, 0, i, batch_size, t_len))
+            with span("data.batch"):
+                noises = self._noises(epoch, 0, i, batch_size, t_len)
+                rows = idx_d[:, i]  # [n_seeds, B]
+                u, y, w_i = data_u[rows], data_y[rows], w_d[:, i]
+            loss, ok = self.train_step(u, y, w_i, noises)
             losses.append(loss)
             applied.append(ok)
         return torch.stack(losses).mean(dim=0), (~torch.stack(applied)).sum(dim=0)
@@ -412,16 +446,20 @@ class MultiSeedTrainer:
     def _epoch_eval(self, ds, batch_size, epoch):
         """Issue one test-set evaluation of every held lane; returns the
         lanes' mean losses ([lanes]) on the device."""
-        data_u, data_y = self._stage("test", ds.test_in_batch, ds.test_out_batch)
-        idx, w = self._single_indices(data_u.shape[0], batch_size, shuffle=False)
-        idx_d = upload(idx.astype(np.int64), self.device)
-        w_d = upload(w, self.device)
+        with span("data.epoch"):
+            data_u, data_y = self._stage("test", ds.test_in_batch, ds.test_out_batch)
+            idx, w = self._single_indices(data_u.shape[0], batch_size, shuffle=False)
+            idx_d = upload(idx.astype(np.int64), self.device)
+            w_d = upload(w, self.device)
         t_len = data_u.shape[1]
-        losses = [
-            self.lane_losses(self.params, data_u[idx_d[i]], data_y[idx_d[i]], w_d[i],
-                             self._noises(epoch, 1, i, batch_size, t_len), lanes_data=False)
-            for i in range(idx.shape[0])
-        ]
+        losses = []
+        for i in range(idx.shape[0]):
+            with span("data.batch"):
+                noises = self._noises(epoch, 1, i, batch_size, t_len)
+                u, y, w_i = data_u[idx_d[i]], data_y[idx_d[i]], w_d[i]
+            with span("eval.loss"):
+                losses.append(self.lane_losses(self.params, u, y, w_i, noises,
+                                               lanes_data=False))
         return torch.stack(losses).mean(dim=0)
 
     # --- the mesh -------------------------------------------------------------
@@ -433,11 +471,12 @@ class MultiSeedTrainer:
         if self.mesh is None:
             return tree
         parts = [None] * distributed.axis_size(self.mesh, self.seed_axis)
-        if isinstance(tree, np.ndarray):
-            dist.all_gather_object(parts, tree, group=self.mesh.get_group(self.seed_axis))
-            return np.concatenate(parts)
-        dist.all_gather_object(parts, _cpu(tree), group=self.mesh.get_group(self.seed_axis))
-        return _cat(parts, self.device)
+        with span("trainer.readback"):
+            if isinstance(tree, np.ndarray):
+                dist.all_gather_object(parts, tree, group=self.mesh.get_group(self.seed_axis))
+                return np.concatenate(parts)
+            dist.all_gather_object(parts, _cpu(tree), group=self.mesh.get_group(self.seed_axis))
+            return _cat(parts, self.device)
 
     def _unshard(self, params: list, opt: dict):
         """Hold every lane: the gathered stacked ``params`` and ``opt``
@@ -457,6 +496,18 @@ class MultiSeedTrainer:
         return resolve_epochs_per_dispatch(self.epochs_per_dispatch, steps_per_epoch, epochs)
 
     def train(self, ds, epochs: int, retrain: bool = False):
+        start = lane_launches()
+        try:
+            with span("trainer.train"):
+                self._train(ds, epochs, retrain)
+        finally:
+            for k, n in lane_launches().items():
+                self._launches[k] += n - start[k]
+        self.metrics.log(event="done", epochs=epochs, best_train=self.best_loss.tolist(),
+                         **({"skipped_steps": self.skipped_steps} if self._guard else {}),
+                         **self.counts())
+
+    def _train(self, ds, epochs: int, retrain: bool):
         if self._writer:
             print(f"\nTraining {self.n_seeds} seeds (vmapped)...\n")
             stamp_dataset(self.model_dir, ds)
@@ -481,41 +532,57 @@ class MultiSeedTrainer:
             if pending is not None:
                 self._process_block(pending)  # the tail reads best_* on the host
                 pending = None
-            t0 = time.perf_counter()
-            train_d, skipped_d = self._epoch_train(ds, batch_size, epoch)
-            test_d = self._epoch_eval(ds, batch_size, epoch)
-            train_np = train_d.cpu().numpy().astype(np.float64)
-            skipped, test_np = skipped_d.cpu().numpy(), test_d.cpu().numpy().astype(np.float64)
-            train_np, skipped, test_np = (self._gather(a) for a in (train_np, skipped, test_np))
-            if self._guard:
-                self._note_skipped(skipped)
-            improved = train_np < self.best_loss
-            if improved.any():
-                mask = torch.as_tensor(improved[self._lanes], device=self.device)
-                self.best_params, self.best_opt = self._select_best(
-                    mask, self.best_params, self.best_opt)
-                self.best_loss = np.where(improved, train_np, self.best_loss)
-            self._log_epoch(epoch, train_np, test_np, time.perf_counter() - t0,
-                            skipped if self._guard else None)
-            if improved.any():
-                # best saved on every improvement, as Trainer does
-                self._save_best()
+            with span("trainer.epoch"):
+                t0 = time.perf_counter()
+                train_d, skipped_d = self._epoch_train(ds, batch_size, epoch)
+                test_d = self._epoch_eval(ds, batch_size, epoch)
+                with span("trainer.readback"):
+                    train_np = train_d.cpu().numpy().astype(np.float64)
+                    skipped = skipped_d.cpu().numpy()
+                    test_np = test_d.cpu().numpy().astype(np.float64)
+                    train_np, skipped, test_np = (self._gather(a)
+                                                  for a in (train_np, skipped, test_np))
+                if self._guard:
+                    self._note_skipped(skipped)
+                improved = train_np < self.best_loss
+                if improved.any():
+                    with span("trainer.checkpoint"):
+                        mask = torch.as_tensor(improved[self._lanes], device=self.device)
+                        self.best_params, self.best_opt = self._select_best(
+                            mask, self.best_params, self.best_opt)
+                    self.best_loss = np.where(improved, train_np, self.best_loss)
+                self._log_epoch(epoch, train_np, test_np, time.perf_counter() - t0,
+                                skipped if self._guard else None)
+                if improved.any():
+                    # best saved on every improvement, as Trainer does
+                    self._save_best()
             epoch += 1
         if pending is not None:
             self._process_block(pending)
         params = self._gather([t.detach() for t in self.params.tensors()])
         opt = self._gather(self.opt.state())
-        if self._writer:
-            self.saver.save(os.path.join(self.model_dir, LAST_SEEDS),
-                            {"params": params, "opt_state": opt})
-            self.saver.save(os.path.join(self.model_dir, checkpoint.LAST),
-                            self._single_tree(self.best_seed(), False, params, opt))
+        with span("trainer.checkpoint"):
+            if self._writer:
+                self.saver.save(os.path.join(self.model_dir, LAST_SEEDS),
+                                {"params": params, "opt_state": opt})
+                self.saver.save(os.path.join(self.model_dir, checkpoint.LAST),
+                                self._single_tree(self.best_seed(), False, params, opt))
         if self.mesh is not None:
             self._unshard(params, opt)
-        self.saver.flush(self.model_dir)
+        with span("trainer.checkpoint"):
+            self.saver.flush(self.model_dir)
         self._barrier()
-        self.metrics.log(event="done", epochs=epochs, best_train=self.best_loss.tolist(),
-                         **({"skipped_steps": self.skipped_steps} if self._guard else {}))
+
+    def counts(self) -> dict:
+        """What the trainer ran over its life: ``train_steps``
+        (lane-batched Adam steps, each advancing every held lane),
+        ``lane_steps`` (train steps x lanes held), ``skipped_lane_steps``
+        (lane updates the guard skipped; 0 without it) and the lane GP
+        kernel launches issued inside :meth:`train`
+        (``residual_lane_launches``, ``value_lane_launches``: see
+        :func:`lane_launches`)."""
+        return {"train_steps": self.train_steps, "lane_steps": self.lane_steps,
+                "skipped_lane_steps": self.skipped_steps, **self._launches}
 
     def _select_best(self, mask, best_params, best_opt):
         """The best params and optimizer state with the lanes where
@@ -539,26 +606,30 @@ class MultiSeedTrainer:
         losses and best losses behind the block's last kernel with an
         event to wait on."""
         t0 = time.perf_counter()
-        if self._chain is None:
-            self._chain = (upload(self.best_loss[self._lanes], self.device),
-                           self.best_params, self.best_opt)
-        best_loss, best_params, best_opt = self._chain
+        with span("trainer.block"):
+            if self._chain is None:
+                self._chain = (upload(self.best_loss[self._lanes], self.device),
+                               self.best_params, self.best_opt)
+            best_loss, best_params, best_opt = self._chain
         best_in = best_loss
         trl, tel, skl = [], [], []
         for epoch in range(start, start + k):
-            train_loss, skipped = self._epoch_train(ds, batch_size, epoch)
-            tel.append(self._epoch_eval(ds, batch_size, epoch))
-            trl.append(train_loss)
-            skl.append(skipped)
-            train64 = train_loss.to(best_loss.dtype)
-            improved = train64 < best_loss
-            best_loss = torch.where(improved, train64, best_loss)
-            best_params, best_opt = self._select_best(improved, best_params, best_opt)
-        self._chain = (best_loss, best_params, best_opt)
-        host = {"train": host_copy(torch.stack(trl)), "test": host_copy(torch.stack(tel)),
-                "skipped": host_copy(torch.stack(skl)), "best_in": host_copy(best_in),
-                "best": host_copy(best_loss)}
-        return start, k, t0, host, ready_event(self.device), best_params, best_opt
+            with span("trainer.epoch"):
+                train_loss, skipped = self._epoch_train(ds, batch_size, epoch)
+                tel.append(self._epoch_eval(ds, batch_size, epoch))
+                trl.append(train_loss)
+                skl.append(skipped)
+                with span("trainer.block"):
+                    train64 = train_loss.to(best_loss.dtype)
+                    improved = train64 < best_loss
+                    best_loss = torch.where(improved, train64, best_loss)
+                    best_params, best_opt = self._select_best(improved, best_params, best_opt)
+        with span("trainer.block"):
+            self._chain = (best_loss, best_params, best_opt)
+            host = {"train": host_copy(torch.stack(trl)), "test": host_copy(torch.stack(tel)),
+                    "skipped": host_copy(torch.stack(skl)), "best_in": host_copy(best_in),
+                    "best": host_copy(best_loss)}
+            return start, k, t0, host, ready_event(self.device), best_params, best_opt
 
     def _process_block(self, handles, t_next: float | None = None):
         """The host half of a block: wait for its copies alone, gather
@@ -567,17 +638,18 @@ class MultiSeedTrainer:
         next block's dispatch, when given: ``Trainer._process_block``),
         and save the best checkpoint if any lane improved."""
         start, k, t0, host, event, best_params, best_opt = handles
-        if event is not None:
-            event.synchronize()
+        with span("trainer.readback"):
+            if event is not None:
+                event.synchronize()
 
-        def lanes(key):  # [k, held lanes] -> [k, n_seeds]
-            return self._gather(host[key].numpy().T).T
+            def lanes(key):  # [k, held lanes] -> [k, n_seeds]
+                return self._gather(host[key].numpy().T).T
 
-        train_k = lanes("train").astype(np.float64)
-        test_k = lanes("test").astype(np.float64)
-        skipped_k = lanes("skipped")
-        best_in = self._gather(host["best_in"].numpy())
-        best = self._gather(host["best"].numpy())
+            train_k = lanes("train").astype(np.float64)
+            test_k = lanes("test").astype(np.float64)
+            skipped_k = lanes("skipped")
+            best_in = self._gather(host["best_in"].numpy())
+            best = self._gather(host["best"].numpy())
         self.best_params, self.best_opt, self.best_loss = best_params, best_opt, best
         dt = ((time.perf_counter() if t_next is None else t_next) - t0) / k
         for j in range(k):
@@ -596,24 +668,26 @@ class MultiSeedTrainer:
                   file=sys.stderr)
 
     def _log_epoch(self, epoch, train_np, test_np, dt, skipped=None):
-        if self._writer:
-            print(f"[{epoch:04}]: Train {train_np.mean():.4f} "
-                  f"(per-seed {np.array2string(train_np, precision=2)}), "
-                  f"Test {test_np.mean():.4f}  ({dt:.2f}s)")
-        self.train_all.append(train_np)
-        self.test_all.append(test_np)
-        extra = {"skipped_steps": skipped.tolist()} if skipped is not None else {}
-        self.metrics.log(event="epoch", epoch=epoch, train_loss=train_np.tolist(),
-                         test_loss=test_np.tolist(), seconds=dt, **extra)
+        with span("trainer.log"):
+            if self._writer:
+                print(f"[{epoch:04}]: Train {train_np.mean():.4f} "
+                      f"(per-seed {np.array2string(train_np, precision=2)}), "
+                      f"Test {test_np.mean():.4f}  ({dt:.2f}s)")
+            self.train_all.append(train_np)
+            self.test_all.append(test_np)
+            extra = {"skipped_steps": skipped.tolist()} if skipped is not None else {}
+            self.metrics.log(event="epoch", epoch=epoch, train_loss=train_np.tolist(),
+                             test_loss=test_np.tolist(), seconds=dt, **extra)
 
     def _save_best(self):
         params, opt = self._gather(self.best_params), self._gather(self.best_opt)
         if not self._writer:
             return
-        self.saver.save(os.path.join(self.model_dir, BEST_SEEDS),
-                        {"params": params, "opt_state": opt})
-        self.saver.save(os.path.join(self.model_dir, checkpoint.BEST),
-                        self._single_tree(self.best_seed(), True, params, opt))
+        with span("trainer.checkpoint"):
+            self.saver.save(os.path.join(self.model_dir, BEST_SEEDS),
+                            {"params": params, "opt_state": opt})
+            self.saver.save(os.path.join(self.model_dir, checkpoint.BEST),
+                            self._single_tree(self.best_seed(), True, params, opt))
 
     def _barrier(self):
         """Wait for every rank (after rank 0's file writes)."""
